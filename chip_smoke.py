@@ -4,8 +4,9 @@ Runs on one CUDA card and exits non-zero on any failure (and at once when
 no card is visible). It imports nothing of JAX or of ``predictionio_tpu``.
 
 1. Device: the card's name, ``nvidia-smi``'s name and power limit, and the
-   time to build the top-k kernel (``predictionio_tpu_torch/csrc/topk.cu``)
-   with ``nvcc`` from the checkout's sources.
+   time to build the kernels (``predictionio_tpu_torch/csrc/topk.cu`` and
+   ``csrc/flash_attn.cu``, one ``nvcc`` each, in parallel) from the
+   checkout's sources.
 2. Kernel vs plain on the card: ``topk`` and ``topk_rows`` against their
    plain PyTorch versions (``topk_reference`` / ``topk_rows_reference``) on
    the ML-20M catalog (27,136 x 128 padded f32) for B in {1, 8, 64, 128}
@@ -24,9 +25,35 @@ no card is visible). It imports nothing of JAX or of ``predictionio_tpu``.
    the kernel's launch counter moves with the batches; wall p50/p99, qps,
    and the device's busy share over a second, profiled burst.
 
-Before the last line it prints one JSON object with a record per kernel
-entry point (launches on the main path, error, times and bound); the last
-line is ``{"ok": true, "device": {...}}``.
+4. Attention kernel vs plain on the card: ``flash_attention``
+   (``csrc/flash_attn.cu``) against ``blockwise_attention`` at the seqrec
+   attention shapes (B4 L4096 H8 D64 causal, bf16 and f32; B1 L16384 H8
+   D64 causal bf16), the serving shapes of phase 5 (B8 and B128, L4096 H8
+   D64 causal f32), the shipped template's head dim (B8 L64 H2 D24), D128
+   L128, and an unaligned L25, causal and not. Max |err| within 1e-5 for
+   f32 (summation order) and 2**-7 for bf16 (two bf16 steps at |o| ~ 1);
+   median device times of the kernel, the plain version (run in batch
+   chunks so its [B, H, L, block] scores fit) and, as a yardstick the port
+   never calls, ``scaled_dot_product_attention``.
+5. SeqRec serving: the ML-20M catalog (26,744 items) under a seqrec model
+   at embed 512, 8 heads (head dim 64), 2 blocks, max_len 4096, weights
+   from a seeded generator at flax's init scales, and 20,000 users with
+   left-padded histories of 1 to 4096 items, deployed through the port's
+   seqrec template, ``Deployed`` (prewarm on) and ``EngineServer`` behind
+   ``serve()``; 8 sequential queries, then 64 at once from 4 client
+   processes (num in {1, 4, 10, 20}, a few unknown users); every answer
+   equal to the plain path's (the same module with attention through
+   ``blockwise_attention``, then the same host top-k); the attention
+   kernel launched once per block per forward; wall p50/p99, qps,
+   queries per batch and the device's busy share. Then the shipped
+   template configuration (embed 48, 2 heads, max_len 64) through
+   ``batch_recommend`` once, against its plain path.
+
+The ALS path (phase 3) and the seqrec path (phase 5) are each driven with
+every launch count set to 0 just before and read just after. Before the
+last line it prints one JSON object with a record per kernel entry point
+(launches on its main path, error, times and bound); the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -42,26 +69,47 @@ import numpy as np
 import torch
 
 from predictionio_tpu_torch.controller import FirstServing, TrainResult
-from predictionio_tpu_torch.convert import als_model_from_numpy
+from predictionio_tpu_torch.convert import (als_model_from_numpy,
+                                            seqrec_model_from_numpy)
 from predictionio_tpu_torch.device import resolve_device
+from predictionio_tpu_torch.models.seq_attention import (
+    SeqRecConfig, SeqRecModel, init_params)
 from predictionio_tpu_torch.obs.metrics import METRICS
 from predictionio_tpu_torch.ops import kernels
 from predictionio_tpu_torch.ops.pipeline import _capacity
 from predictionio_tpu_torch.ops.retrieval import (
     PACKED_IDX_LIMIT, _pad_items, _query_shapes, topk_reference,
     topk_rows_reference)
+from predictionio_tpu_torch.parallel.ring_attention import (
+    blockwise_attention, flash_attention)
 from predictionio_tpu_torch.templates.recommendation.engine import (
     ALSAlgorithm, AlgorithmParams, engine_factory)
+from predictionio_tpu_torch.templates.seqrec import engine as seqrec_engine
 from predictionio_tpu_torch.workflow.create_server import EngineServer, serve
 
 SEED = 20
 RTOL = ATOL = 1e-5
 # ML-20M (bench.py's headline shape): users x items at rank 64
 N_USERS, N_ITEMS, RANK = 138_493, 26_744, 64
-# H100 SXM data-sheet peaks: HBM bytes/s and f32 (non-tensor-core) FLOP/s
-PEAK_BYTES_S, PEAK_F32_FLOP_S = 3.35e12, 67e12
+# H100 SXM data-sheet peaks: HBM bytes/s, f32 (non-tensor-core) FLOP/s and
+# dense bf16 tensor-core FLOP/s
+PEAK_BYTES_S, PEAK_F32_FLOP_S, PEAK_BF16_FLOP_S = 3.35e12, 67e12, 989e12
 KERNEL_SOURCE = "predictionio_tpu_torch/csrc/topk.cu"
 REPLACES = "predictionio_tpu/ops/retrieval.py:196"
+FLASH_SOURCE = "predictionio_tpu_torch/csrc/flash_attn.cu"
+# jax's stock Pallas TPU kernel that predictionio_tpu/parallel/
+# ring_attention.py:207 calls (jax 0.9.0; its pl.pallas_call is at :758)
+FLASH_REPLACES = "jax/experimental/pallas/ops/tpu/flash_attention.py:331"
+# attention: f32 sums in another order; bf16 outputs two bf16 steps at |o|~1
+ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0**-7}
+# seqrec logits: one bf16 step at their magnitude (the Dense layers round to
+# bf16, and an f32 summation-order difference can tip one rounding)
+SEQ_TOL = 2.0**-7
+# seqrec serving (phase 5): bench.py's seqrec attention shape (H8 D64,
+# L4096) as a model of the template's depth over the ML-20M catalog
+SEQ_CFG = SeqRecConfig(max_len=4096, embed_dim=512, num_heads=8,
+                       num_blocks=2)
+N_SEQ_USERS = 20_000
 
 
 def check(ok: bool, what: str) -> None:
@@ -297,23 +345,33 @@ def host_check(body: dict, query: dict, users, items) -> None:
 #: The load generator of the concurrent burst, run as separate processes so
 #: that client threads do not share the server's interpreter lock. Reads
 #: its queries as JSON on stdin; writes one JSON list of [body, wall
-#: seconds, monotonic start, monotonic end] per query.
+#: seconds, monotonic start, monotonic end] per query. One connection per
+#: query through ``http.client``: ``urllib.request.urlopen`` builds its
+#: process-wide opener (an HTTPS context that loads the CA store) on first
+#: use, and threads racing to build it held the first query of every
+#: client thread for about 2 s.
 _CLIENT = r"""
-import json, sys, time, urllib.request
+import http.client, json, sys, time
 from concurrent.futures import ThreadPoolExecutor
+from urllib.parse import urlsplit
 
 url, workers = sys.argv[1], int(sys.argv[2])
+target = urlsplit(url)
 queries = json.loads(sys.stdin.read())
 
 def post(qj):
     t0 = time.monotonic()
-    req = urllib.request.Request(
-        url, data=json.dumps(qj).encode(), method="POST",
-        headers={"Content-Type": "application/json"})
-    with urllib.request.urlopen(req, timeout=60) as resp:
-        body = json.loads(resp.read())
+    conn = http.client.HTTPConnection(target.hostname, target.port,
+                                      timeout=60)
+    conn.request("POST", target.path, body=json.dumps(qj),
+                 headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    raw = resp.read()
+    conn.close()
+    if resp.status != 200:
+        raise RuntimeError(f"HTTP {resp.status}: {raw[:200]!r}")
     t1 = time.monotonic()
-    return [body, t1 - t0, t0, t1]
+    return [json.loads(raw), t1 - t0, t0, t1]
 
 with ThreadPoolExecutor(workers) as pool:
     print(json.dumps(list(pool.map(post, queries))))
@@ -340,9 +398,14 @@ def burst(url: str, queries: list, procs: int, threads: int):
         [sys.executable, "-c", _CLIENT, url, str(threads)],
         stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
         for _ in shares]
-    outs = [c.communicate(json.dumps(s), timeout=300)[0]
-            for c, s in zip(clients, shares)]
-    check(all(c.returncode == 0 for c in clients), "a load client failed")
+    # every client gets its queries before any answer is read, so all of
+    # them send at once (communicate() one by one would run them in turn)
+    for c, share in zip(clients, shares):
+        c.stdin.write(json.dumps(share))
+        c.stdin.close()
+    outs = [c.stdout.read() for c in clients]
+    check(all(c.wait(timeout=300) == 0 for c in clients),
+          "a load client failed")
     results = [json.loads(o) for o in outs]
     answers = [None] * len(queries)
     for p, res in enumerate(results):
@@ -430,15 +493,308 @@ def phase_serving(dev, server, *, n_seq=16, n_conc=256, procs=4,
             "device_busy_share": sum(busy.values()) / 1e3 / prof_s}
 
 
+# -- phase 4 ------------------------------------------------------------
+
+
+#: (case, B, L, H, D, dtype, causal); the phase-5 serving shapes are the
+#: model's per-block call at b_pad 8 (one query) and 128 (a full batch)
+ATTN_CASES = [
+    ("seqrec B4 L4096 H8 D64 causal bf16", 4, 4096, 8, 64, "bfloat16", True),
+    ("seqrec B4 L4096 H8 D64 causal f32", 4, 4096, 8, 64, "float32", True),
+    ("long B1 L16384 H8 D64 causal bf16", 1, 16384, 8, 64, "bfloat16", True),
+    ("serving B8 L4096 H8 D64 causal f32", 8, 4096, 8, 64, "float32", True),
+    ("serving B128 L4096 H8 D64 causal f32", 128, 4096, 8, 64, "float32",
+     True),
+    ("template B8 L64 H2 D24 causal f32", 8, 64, 2, 24, "float32", True),
+    ("template B8 L64 H2 D24 causal bf16", 8, 64, 2, 24, "bfloat16", True),
+    ("D128 B4 L128 H8 causal f32", 4, 128, 8, 128, "float32", True),
+    ("D128 B4 L128 H8 full f32", 4, 128, 8, 128, "float32", False),
+    ("unaligned B2 L25 H2 D64 causal f32", 2, 25, 2, 64, "float32", True),
+    ("unaligned B2 L25 H2 D64 full f32", 2, 25, 2, 64, "float32", False),
+    ("unaligned B2 L25 H2 D64 causal bf16", 2, 25, 2, 64, "bfloat16", True),
+    ("unaligned B2 L25 H2 D64 full bf16", 2, 25, 2, 64, "bfloat16", False),
+]
+SERVING_CASE = "serving B8 L4096 H8 D64 causal f32"
+#: plain attention: batch rows per chunk, so [chunk, H, L, 1024] f32 scores
+#: stay near 1 GiB at L 4096
+PLAIN_CHUNK = 8
+
+
+def chunked_blockwise(q, k, v, *, causal: bool, chunk: int = PLAIN_CHUNK):
+    """``blockwise_attention`` over ``chunk`` batch rows at a time."""
+    return torch.cat([blockwise_attention(q[s:s + chunk], k[s:s + chunk],
+                                          v[s:s + chunk], causal=causal)
+                      for s in range(0, q.shape[0], chunk)])
+
+
+def attn_bound_ms(B, L, H, D, dtype, causal) -> tuple[float, str]:
+    """Least time at H100 SXM peaks: q, k, v read and o written once; 4*D
+    FLOP per visible (query, key) pair (QK^T and PV), L(L+1)/2 pairs when
+    causal, at the f32 peak for f32 and the bf16 tensor-core peak for
+    bf16."""
+    elem = 4 if dtype == torch.float32 else 2
+    nbytes = 4 * B * L * H * D * elem
+    pairs = L * (L + 1) // 2 if causal else L * L
+    flops = 4 * B * H * D * pairs
+    peak = PEAK_F32_FLOP_S if dtype == torch.float32 else PEAK_BF16_FLOP_S
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / peak
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def attention_case(dev, name, B, L, H, D, dtype, causal, *, timing):
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=dev).manual_seed(SEED + B * L + D)
+    q, k, v = (torch.randn(B, L, H, D, generator=gen, device=dev)
+               .mul_(0.5).to(dt) for _ in range(3))
+    out = flash_attention(q, k, v, causal=causal)
+    ref = chunked_blockwise(q, k, v, causal=causal)
+    check(out.dtype == dt and out.shape == q.shape,
+          f"{name}: kernel output {out.dtype} {tuple(out.shape)}")
+    check(bool(torch.isfinite(out).all()), f"{name}: non-finite output")
+    err = float((out.float() - ref.float()).abs().max())
+    tol = ATTN_TOL[dt]
+    check(bool(torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol)),
+          f"{name}: kernel disagrees with blockwise_attention (max |err| "
+          f"{err:.3g}, tolerance {tol:.3g})")
+    rec = {"case": name, "shape": [B, L, H, D], "dtype": dtype,
+           "causal": causal, "max_abs_err": err, "tol": tol}
+    del out, ref
+    if timing:
+        iters, reps = (2, 3) if B * L * L * H >= 1 << 34 else (10, 5)
+        rec["ms"] = device_ms(lambda: flash_attention(q, k, v, causal=causal),
+                              iters, reps)
+        rec["plain_ms"] = device_ms(
+            lambda: chunked_blockwise(q, k, v, causal=causal), iters, reps)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        rec["library_ms"] = device_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal), iters, reps)
+        rec["bound_ms"], rec["bound_by"] = attn_bound_ms(B, L, H, D, dt,
+                                                         causal)
+    return rec
+
+
+def phase_attention(dev, cases=ATTN_CASES, *, timing=True) -> list:
+    recs = []
+    for case in cases:
+        recs.append(attention_case(dev, *case, timing=timing))
+        print("[attention] " + json.dumps(recs[-1]), flush=True)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return recs
+
+
+# -- phase 5 ------------------------------------------------------------
+
+
+def seq_histories(rng, n_users: int, max_len: int, n_items: int):
+    """Left-padded histories [n_users, max_len] int32: lengths uniform in
+    [1, max_len], items uniform in [1, n_items] (0 = pad)."""
+    seqs = rng.integers(1, n_items + 1, (n_users, max_len), dtype=np.int32)
+    lengths = rng.integers(1, max_len + 1, n_users)
+    seqs[np.arange(max_len)[None, :] < (max_len - lengths)[:, None]] = 0
+    return seqs
+
+
+def build_seq_model(dev, cfg: SeqRecConfig, *, n_users, n_items,
+                    seed=SEED) -> SeqRecModel:
+    rng = np.random.default_rng(seed)
+    seqs = seq_histories(rng, n_users, cfg.max_len, n_items)
+    return seqrec_model_from_numpy(
+        init_params(n_items, cfg, seed), seqs,
+        [f"u{i}" for i in range(n_users)], [f"i{j}" for j in range(n_items)],
+        cfg, device=dev)
+
+
+class PlainSeqRec(SeqRecModel):
+    """The served model's weights and histories with every block's
+    attention through ``blockwise_attention``, ``PLAIN_CHUNK`` users at a
+    time, then the same host top-k: the plain path each answer is held
+    to."""
+
+    def logits_last(self, seqs: np.ndarray) -> np.ndarray:
+        net = self._net
+        dev = net.item_embed.device
+        outs = []
+        with torch.inference_mode():
+            for s in range(0, len(seqs), PLAIN_CHUNK):
+                x = torch.from_numpy(seqs[s:s + PLAIN_CHUNK]).to(dev)
+                outs.append(net.forward_last(
+                    x, attention=blockwise_attention).cpu().numpy())
+        return np.concatenate(outs)
+
+
+def plain_twin(model: SeqRecModel) -> PlainSeqRec:
+    twin = PlainSeqRec(params=model.params, seqs=model.seqs,
+                       user_ids=model.user_ids, item_ids=model.item_ids,
+                       config=model.config)
+    twin._net = model._net
+    return twin
+
+
+def seq_check(got: list, want: list, num: int, what: str) -> None:
+    """A served list of ``num`` items against the plain path's list of
+    ``num + 1`` (the extra rank is the neighbour of the last): the same
+    length, scores within SEQ_TOL, and the same item at every rank whose
+    plain score is more than SEQ_TOL from both neighbours' (near-ties may
+    swap, across the list's end too)."""
+    n = min(num, len(want))
+    check(len(got) == n, f"{what}: {len(got)} items, want {n}")
+    ws = [s for _, s in want]
+    for r, ((gi, gs), (wi, w)) in enumerate(zip(got, want)):
+        check(abs(gs - w) <= SEQ_TOL, f"{what}: rank {r} score {gs} vs "
+              f"plain {w}")
+        near = any(abs(w - ws[m]) <= SEQ_TOL
+                   for m in (r - 1, r + 1) if 0 <= m < len(ws))
+        check(near or gi == wi, f"{what}: rank {r} item {gi} ({gs}) vs "
+              f"plain {wi} ({w}); plain neighbours {ws[max(r - 1, 0):r + 2]}")
+
+
+def build_seq_server(dev, *, n_users=N_SEQ_USERS, n_items=N_ITEMS,
+                     cfg=SEQ_CFG) -> EngineServer:
+    model = build_seq_model(dev, cfg, n_users=n_users, n_items=n_items)
+    params = seqrec_engine.AlgorithmParams(
+        max_len=cfg.max_len, embed_dim=cfg.embed_dim,
+        num_heads=cfg.num_heads, num_blocks=cfg.num_blocks)
+    result = TrainResult([model], [seqrec_engine.SeqRecAlgorithm(params)],
+                         FirstServing(), ["seqrec"])
+    return EngineServer(seqrec_engine.engine_factory(), result,
+                        "chip-smoke-seqrec", device=dev)
+
+
+def phase_seq_serving(dev, server, *, n_seq=8, n_conc=64, procs=4,
+                      threads=16) -> dict:
+    model = server.deployed.result.models[0]
+    check(model.device is not None and model.device.type == dev.type,
+          f"seqrec module not on {dev.type}")
+    n_users = len(model.user_ids)
+    rng = np.random.default_rng(SEED + 2)
+    nums = (1, 4, 10, 20)
+
+    def query(j: int) -> dict:
+        user = (f"nobody{j}" if j % 23 == 5
+                else f"u{int(rng.integers(0, n_users))}")
+        return {"user": user, "num": nums[j % len(nums)]}
+
+    seq = [query(j) for j in range(n_seq)]
+    conc = [query(n_seq + j) for j in range(n_conc)]
+    plain = plain_twin(model)
+    want = plain.batch_recommend([q["user"] for q in seq + conc],
+                                 [q["num"] + 1 for q in seq + conc])
+
+    def verify(queries, answers, offset=0):
+        for j, (qj, (body, _wall)) in enumerate(zip(queries, answers)):
+            got = [(g["item"], g["score"]) for g in body["itemScores"]]
+            seq_check(got, want[offset + j], qj["num"], f"query {qj}")
+
+    with serve(server, "127.0.0.1", 0) as front:
+        url = f"http://127.0.0.1:{front.port}/queries.json"
+        b = server.batcher
+        batches0, forwards0 = b.batches, model.forwards
+        launches0 = kernels.LAUNCHES["flash_attention"]
+        METRICS.reset()
+        seq_answers = [post(url, qj) for qj in seq]
+        verify(seq, seq_answers)
+        single_layers = server_latency_ms(server)
+        burst0 = (b.batches, b.batched_queries)
+        METRICS.reset()
+        answers, conc_s = burst(url, conc, procs, threads)
+        layers = server_latency_ms(server)
+        verify(conc, answers, n_seq)
+        batches = b.batches - batches0
+        burst_batch = ((b.batched_queries - burst0[1])
+                       / max(b.batches - burst0[0], 1))
+        forwards = model.forwards - forwards0
+        launches = kernels.LAUNCHES["flash_attention"] - launches0
+        prof_answers = []
+        busy, prof_s = device_profile(lambda: prof_answers.extend(
+            burst(url, conc, procs, threads)[0]))
+        verify(conc, prof_answers, n_seq)
+    unknown = sum(not q["user"].startswith("u") for q in seq + conc)
+    # a batch of unknown users only runs no forward
+    check(launches == model.config.num_blocks * forwards
+          and batches - unknown <= forwards <= batches,
+          f"{launches} flash_attention launches for {forwards} forwards of "
+          f"{model.config.num_blocks} blocks in {batches} batches")
+    walls_ms = np.array([w for _, w in seq_answers + answers]) * 1e3
+    return {"queries": len(walls_ms), "unknown_users": unknown,
+            "batches": batches, "forwards": forwards,
+            "flash_attention_launches": launches,
+            "single_p50_ms": float(np.percentile(walls_ms[:n_seq], 50)),
+            "single_max_ms": float(walls_ms[:n_seq].max()),
+            "single_server_ms": single_layers,
+            "burst_p50_ms": float(np.percentile(walls_ms[n_seq:], 50)),
+            "burst_p99_ms": float(np.percentile(walls_ms[n_seq:], 99)),
+            "wall_p50_ms": float(np.percentile(walls_ms, 50)),
+            "wall_p99_ms": float(np.percentile(walls_ms, 99)),
+            "qps_concurrent": n_conc / conc_s,
+            "clients": procs * threads,
+            "burst_avg_batch": burst_batch,
+            "burst_server_ms": layers,
+            "max_batch": b.max_seen_batch,
+            "device_busy_share": sum(busy.values()) / 1e3 / prof_s,
+            "device_ms_by_kernel": dict(sorted(
+                busy.items(), key=lambda kv: -kv[1])[:8])}
+
+
+def phase_seq_template(dev, *, n_users=1000, n_items=N_ITEMS) -> dict:
+    """The shipped template configuration (seqrec engine.json: embed 48,
+    2 heads, max_len 64) through ``batch_recommend`` once, against its
+    plain path."""
+    cfg = SeqRecConfig(**{f: getattr(seqrec_engine.AlgorithmParams(), f)
+                          for f in ("max_len", "embed_dim", "num_heads",
+                                    "num_blocks")})
+    model = build_seq_model(dev, cfg, n_users=n_users, n_items=n_items,
+                            seed=SEED + 3)
+    users = [f"u{i}" for i in range(0, n_users, max(n_users // 40, 1))]
+    users += ["nobody"]
+    nums = [(1, 4, 10, 20)[j % 4] for j in range(len(users))]
+    launches0, forwards0 = kernels.LAUNCHES["flash_attention"], model.forwards
+    got = model.batch_recommend(users, nums)
+    launches = kernels.LAUNCHES["flash_attention"] - launches0
+    forwards = model.forwards - forwards0
+    check(forwards == 1 and (dev.type != "cuda"
+                             or launches == cfg.num_blocks),
+          f"{launches} launches in {forwards} forwards")
+    check(got[-1] == [], "an unknown user got items")
+    want = plain_twin(model).batch_recommend(users, [n + 1 for n in nums])
+    for u, num, g, w in zip(users, nums, got, want):
+        seq_check(g, w, num, f"template user {u}")
+    return {"config": {"max_len": cfg.max_len, "embed_dim": cfg.embed_dim,
+                       "num_heads": cfg.num_heads,
+                       "num_blocks": cfg.num_blocks},
+            "queries": len(users), "forwards": forwards,
+            "flash_attention_launches": launches}
+
+
 # -- main ---------------------------------------------------------------
 
 
-def kernel_record(name: str, launches: int, case: dict) -> dict:
-    return {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
-            "replaces": REPLACES, "launches": launches,
+def kernel_record(name: str, launches: int, case: dict, *,
+                  source=KERNEL_SOURCE, replaces=REPLACES) -> dict:
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
             "max_abs_err": case["max_abs_err"], "ms": case["ms"],
             "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
             "bound_by": case["bound_by"], "library_ms": case["library_ms"]}
+
+
+class Clock:
+    """Prints each phase's wall seconds as it ends."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+
+    def lap(self, phase: str) -> None:
+        now = time.perf_counter()
+        print(f"[time] phase {phase}: {now - self.t:.1f} s", flush=True)
+        self.t = now
+
+
+def reset_launches() -> None:
+    for key in kernels.LAUNCHES:
+        kernels.LAUNCHES[key] = 0
 
 
 def main() -> int:
@@ -459,7 +815,9 @@ def main() -> int:
           f"{torch.version.cuda}", flush=True)
     print(smi, flush=True)
 
+    clock = Clock()
     recs = phase_kernels(dev)
+    clock.lap("2 topk kernels")
     for r in recs:
         print("[kernel] " + json.dumps(r), flush=True)
     print(f"[kernel] {len(recs)} fixtures match the plain versions "
@@ -467,23 +825,59 @@ def main() -> int:
           f"tie fixtures bitwise)", flush=True)
     torch.cuda.empty_cache()
 
-    # the main path: deploy (which prewarms) and serve, counted from zero
-    for key in kernels.LAUNCHES:
-        kernels.LAUNCHES[key] = 0
+    # the ALS path: deploy (which prewarms) and serve, counted from zero
+    reset_launches()
     server = build_server(dev)
     serving = phase_serving(dev, server)
     launches = dict(kernels.LAUNCHES)
-    check(all(n > 0 for n in launches.values()),
-          f"a kernel of the serving path never launched: {launches}")
+    check(launches["topk"] > 0 and launches["topk_rows"] > 0,
+          f"a kernel of the ALS serving path never launched: {launches}")
     print("[serving] " + json.dumps({**serving, "launches": launches,
                                      "card": smi}), flush=True)
+    del server
+    torch.cuda.empty_cache()
+    clock.lap("3 ALS serving")
+
+    attn = phase_attention(dev)
+    clock.lap("4 attention kernel")
+    print(f"[attention] {len(attn)} fixtures match blockwise_attention "
+          f"(max |err| f32 "
+          f"{max(r['max_abs_err'] for r in attn if r['dtype'] == 'float32'):.3g}"
+          f", bf16 "
+          f"{max(r['max_abs_err'] for r in attn if r['dtype'] == 'bfloat16'):.3g})",
+          flush=True)
+
+    # the seqrec path: deploy (which prewarms) and serve, counted from zero
+    reset_launches()
+    t0 = time.perf_counter()
+    seq_server = build_seq_server(dev)
+    deploy_s = time.perf_counter() - t0
+    seq_serving = phase_seq_serving(dev, seq_server)
+    seq_launches = dict(kernels.LAUNCHES)
+    check(seq_launches["flash_attention"] > 0,
+          f"the attention kernel never launched on the seqrec path: "
+          f"{seq_launches}")
+    print("[seqrec] " + json.dumps({
+        **seq_serving, "deploy_s": deploy_s,
+        "warmed": seq_server.deployed.warmed, "launches": seq_launches,
+        "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "card": smi}), flush=True)
+    del seq_server
+    torch.cuda.empty_cache()
+    print("[seqrec-template] " + json.dumps(phase_seq_template(dev)),
+          flush=True)
+    clock.lap("5 seqrec serving")
 
     by_case = {r["case"]: r for r in recs}
+    by_attn = {r["case"]: r for r in attn}
     print(json.dumps({"kernels": [
         kernel_record("topk", launches["topk"],
                       by_case["ml20m B=128 k=10"]),
         kernel_record("topk_rows", launches["topk_rows"],
                       by_case["ml20m rows B=8 k=20"]),
+        kernel_record("flash_attention", seq_launches["flash_attention"],
+                      by_attn[SERVING_CASE], source=FLASH_SOURCE,
+                      replaces=FLASH_REPLACES),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -7,9 +7,10 @@ Device work runs on CUDA through hand-written kernels (``csrc/``) unless
 a caller asks for ``device="cpu"``, which runs their plain PyTorch
 versions.
 
-This slice serves the recommendation template: exact top-k over
-device-resident ALS factors, through the micro-batcher and the HTTP
-front end.
+Two templates serve so far, through the micro-batcher and the HTTP front
+end: recommendation (exact top-k over device-resident ALS factors, on the
+top-k kernel) and seqrec (a causal-attention next-item model, on the
+flash-attention forward kernel).
 """
 
 from .device import resolve_device

@@ -1,8 +1,8 @@
 """Carry trained weights into the port.
 
-A model trained elsewhere (the JAX package's ALS, for one) reaches the
-port as plain arrays and id lists; nothing here touches the object that
-produced them.
+A model trained elsewhere (the JAX package's ALS or seqrec, for one)
+reaches the port as plain arrays and id lists; nothing here touches the
+object that produced them.
 """
 
 from __future__ import annotations
@@ -10,9 +10,10 @@ from __future__ import annotations
 import numpy as np
 
 from .models.als import ALSConfig, ALSModel
+from .models.seq_attention import SeqRecConfig, SeqRecModel
 from .storage.bimap import BiMap
 
-__all__ = ["als_model_from_numpy"]
+__all__ = ["als_model_from_numpy", "seqrec_model_from_numpy"]
 
 
 def als_model_from_numpy(user_factors, item_factors, user_ids, item_ids, *,
@@ -38,4 +39,30 @@ def als_model_from_numpy(user_factors, item_factors, user_ids, item_ids, *,
         config=ALSConfig(rank=rank, lambda_=lambda_,
                          implicit_prefs=implicit_prefs, alpha=alpha))
     model.attach_retriever(device=device)
+    return model
+
+
+def seqrec_model_from_numpy(params, seqs, user_ids, item_ids,
+                            config: SeqRecConfig, *,
+                            device=None) -> SeqRecModel:
+    """The port's ``SeqRecModel`` from the flax parameter tree of the JAX
+    seqrec model (numpy leaves, as ``train_seq_rec`` returns them), the
+    left-padded histories ``seqs [users, max_len]`` (0 = pad, item row i
+    stored as i + 1) and the str ids of the user and item rows, in row
+    order. Its module is built on ``device`` (``None`` means CUDA; a
+    server that deploys the model attaches it again on its own device)."""
+    seqs = np.ascontiguousarray(seqs, np.int32)
+    if seqs.ndim != 2 or seqs.shape[1] != config.max_len:
+        raise ValueError(f"seqs must be [users, {config.max_len}]; got "
+                         f"{seqs.shape}")
+    if len(user_ids) != len(seqs):
+        raise ValueError("one user id per history row is required")
+    if seqs.size and (seqs.min() < 0 or seqs.max() > len(item_ids)):
+        raise ValueError(f"history ids must lie in [0, {len(item_ids)}]")
+    model = SeqRecModel(
+        params=params, seqs=seqs,
+        user_ids=BiMap({str(u): i for i, u in enumerate(user_ids)}),
+        item_ids=BiMap({str(v): i for i, v in enumerate(item_ids)}),
+        config=config)
+    model.attach_model(device=device)
     return model

@@ -5,7 +5,10 @@ live and the one place that pins full-f32 arithmetic. The JAX package
 scores with ``Precision.HIGHEST`` (``predictionio_tpu/ops/retrieval.py``);
 a TF32 product keeps about three decimal digits and would reorder
 rankings against host float32 references, so TF32 is switched off for
-matrix products and convolutions alike.
+matrix products and convolutions alike. The seqrec model's bf16 ``Dense``
+layers accumulate in f32 on XLA; cuBLAS may reduce a bf16 product's
+split-K partial sums in bf16 unless told not to, so that is switched off
+too.
 """
 
 from __future__ import annotations
@@ -28,5 +31,6 @@ def resolve_device(device=None) -> torch.device:
             "plain PyTorch versions on the CPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.set_float32_matmul_precision("highest")
     return dev

@@ -1,18 +1,25 @@
-"""The hand-written Hopper top-k kernel: build, binding and launch count.
+"""The hand-written Hopper kernels: build, binding and launch counts.
 
-``csrc/topk.cu`` replaces the Pallas kernel
-``predictionio_tpu/ops/retrieval.py::_topk_kernel``. It is compiled with
-``nvcc`` for ``sm_90a`` through ``torch.utils.cpp_extension.load`` on first
-use, into ``predictionio_tpu_torch/_build/``, and bound with ``ctypes``: the
-source has a plain C interface and includes no PyTorch header, which keeps
-the build to seconds. The build runs under a lock because the serving
-micro-batcher calls from several threads.
+- ``csrc/topk.cu`` replaces the Pallas kernel
+  ``predictionio_tpu/ops/retrieval.py::_topk_kernel``. Entry points
+  ``topk`` and ``topk_rows``: on a CUDA tensor each launches the kernel;
+  on a CPU tensor each runs its plain PyTorch version,
+  ``ops.retrieval.topk_reference`` / ``topk_rows_reference``.
+- ``csrc/flash_attn.cu`` replaces jax's stock Pallas TPU flash-attention
+  forward (``_flash_attention_kernel``), which
+  ``predictionio_tpu/parallel/ring_attention.py::flash_attention`` calls.
+  Entry point ``flash_attention_fwd``, for CUDA tensors only; the CPU
+  dispatch to the plain version lives in
+  ``parallel/ring_attention.py::flash_attention``.
 
-``topk`` and ``topk_rows`` are the two entry points. On a CUDA tensor each
-launches the kernel on the current stream (and raises if the build or the
-launch fails); on a CPU tensor each runs its plain PyTorch version,
-``ops.retrieval.topk_reference`` / ``topk_rows_reference``. ``LAUNCHES``
-counts kernel launches by entry point and nothing else.
+Both sources are compiled with ``nvcc`` for ``sm_90a`` in one
+``torch.utils.cpp_extension.load`` call on first use, into
+``predictionio_tpu_torch/_build/``, and bound with ``ctypes``: they have a
+plain C interface and include no PyTorch header, which keeps the build to
+seconds. The build runs under a lock because the serving micro-batcher
+calls from several threads. Every launch goes on the current stream and
+raises if the build or the launch fails. ``LAUNCHES`` counts kernel
+launches by entry point and nothing else.
 """
 
 from __future__ import annotations
@@ -23,14 +30,14 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["LAUNCHES", "build", "topk", "topk_rows"]
+__all__ = ["LAUNCHES", "build", "flash_attention_fwd", "topk", "topk_rows"]
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "topk.cu"
+SOURCES = (_PKG / "csrc" / "topk.cu", _PKG / "csrc" / "flash_attn.cu")
 BUILD_DIR = _PKG / "_build"
 
 #: Kernel launches per entry point (plain integers; reset by assigning 0).
-LAUNCHES = {"topk": 0, "topk_rows": 0}
+LAUNCHES = {"topk": 0, "topk_rows": 0, "flash_attention": 0}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -46,7 +53,7 @@ def build() -> ctypes.CDLL:
 
         BUILD_DIR.mkdir(exist_ok=True)
         path = load(
-            name="pio_topk", sources=[str(SOURCE)],
+            name="pio_kernels", sources=[str(p) for p in SOURCES],
             build_directory=str(BUILD_DIR),
             extra_cuda_cflags=["-O3", "-std=c++17",
                                "-gencode=arch=compute_90a,code=sm_90a"],
@@ -59,9 +66,15 @@ def build() -> ctypes.CDLL:
         lib.pio_topk_init.restype = i
         lib.pio_topk.argtypes = [p, p, ll, i, p, ll, i, ll, i, p, p, p, p, p]
         lib.pio_topk.restype = i
-        err = lib.pio_topk_init()
-        if err:
-            raise RuntimeError(f"pio_topk_init failed: cudaError {err}")
+        lib.pio_flash_attn_init.argtypes = []
+        lib.pio_flash_attn_init.restype = i
+        lib.pio_flash_attn_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i,
+                                           ctypes.c_float, p]
+        lib.pio_flash_attn_fwd.restype = i
+        for init in (lib.pio_topk_init, lib.pio_flash_attn_init):
+            err = init()
+            if err:
+                raise RuntimeError(f"{init.__name__} failed: cudaError {err}")
         _lib = lib
         return lib
 
@@ -153,3 +166,46 @@ def topk_rows(rows: torch.Tensor, qtab: torch.Tensor, items: torch.Tensor,
         return _pack(*topk_rows_reference(rows, qtab, items, n_total, k_pad),
                      n_total)
     return _launch("topk_rows", qtab, rows, items, n_total, k_pad)
+
+
+#: dtype codes of ``pio_flash_attn_fwd``
+_ATTN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool) -> torch.Tensor:
+    """``softmax(q k^T / sqrt(D), causal mask) v`` for CUDA tensors
+    ``[B, L, H, D]`` of one type (f32 or bf16), contiguous and 16-byte
+    aligned, with ``L >= 1`` and a head dim ``D`` that is a multiple of 8
+    up to 128. Returns a new ``[B, L, H, D]`` tensor of ``q.dtype``.
+    Anything else raises."""
+    if q.dtype not in _ATTN_DTYPES:
+        raise ValueError(f"flash_attention_fwd: dtype {q.dtype}; expected "
+                         "float32 or bfloat16")
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"flash_attention_fwd: shapes {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}; expected "
+                         "three equal [B, L, H, D]")
+    B, L, H, D = q.shape
+    if not (0 < B <= 65535 and 0 < H <= 65535 and L > 0
+            and D % 8 == 0 and 8 <= D <= 128):
+        raise ValueError(f"flash_attention_fwd: shape {tuple(q.shape)}; the "
+                         "kernel takes B, H in [1, 65535], L >= 1 and a head "
+                         "dim that is a multiple of 8 up to 128")
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention_fwd: expected CUDA tensors, got "
+                         f"{dev}; the CPU runs blockwise_attention")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check(name, t, q.dtype, 4, dev)
+    lib = build()
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.pio_flash_attn_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, L, H, D,
+        _ATTN_DTYPES[q.dtype], int(causal), 1.0 / (D**0.5), stream)
+    if err:
+        raise RuntimeError(f"flash_attention kernel launch failed: cudaError "
+                           f"{err}")
+    _count("flash_attention")
+    return out

@@ -2,10 +2,11 @@
 
 The port of ``predictionio_tpu/workflow/create_server.py``'s serving core:
 
-- ``Deployed`` attaches each model's catalog to a ``DeviceRetriever`` and
-  its query table to a ``ServingPipeline`` on the server's device, and
-  prewarms the pipelined batch lattice. A failed attach raises: the server
-  never serves on the host in silence.
+- ``Deployed`` attaches each retrieval model's catalog to a
+  ``DeviceRetriever`` and its query table to a ``ServingPipeline``, and
+  builds each network model (seqrec) on the server's device, then prewarms
+  the batch lattice of both. A failed attach raises: the server never
+  serves on the host in silence.
 - ``EngineServer`` serves single queries and micro-batches
   (``serve_query`` / ``serve_query_batch``) through a ``MicroBatcher``.
 - ``serve(server, host, port)`` is the HTTP front end on the standard
@@ -86,6 +87,12 @@ class Deployed:
     def __post_init__(self):
         self.device = resolve_device(self.device)
         for model in self.result.models:
+            attach_model = getattr(model, "attach_model", None)
+            if attach_model is not None:
+                attach_model(device=self.device)
+                log.info("%s attached on %s", type(model).__name__,
+                         self.device)
+                continue
             attach = getattr(model, "attach_retriever", None)
             if attach is None:
                 continue  # not a retrieval model: nothing to put on device
@@ -101,9 +108,10 @@ class Deployed:
             self._prewarm()
 
     def _prewarm(self):
-        """Launch the kernel for the full pad-bucketed batch lattice — every
-        power-of-two bucket up to the micro-batcher's ceiling — so no
-        query pays the kernel build or a first launch."""
+        """Launch the kernels for the full pad-bucketed batch lattice —
+        every power-of-two bucket up to the micro-batcher's ceiling — so no
+        query pays the kernel build or a first launch: the retriever and
+        pipeline of a retrieval model, the forward of a network model."""
         lattice = {1, self.prewarm_batch}
         b = 8
         while b < self.prewarm_batch:
@@ -111,6 +119,12 @@ class Deployed:
             b *= 2
         sizes = sorted(lattice)
         for model in self.result.models:
+            if getattr(model, "attach_model", None) is not None:
+                warmed = model.prewarm(batch_sizes=sizes)
+                self.warmed.extend(warmed)
+                log.info("prewarmed %s forward at b_pad %s",
+                         type(model).__name__, warmed)
+                continue
             for attr in ("_retriever", "_pipeline"):
                 r = getattr(model, attr, None)
                 if r is not None:

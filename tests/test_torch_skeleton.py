@@ -49,9 +49,28 @@ with serve(server, "127.0.0.1", 0) as front:
         f"http://127.0.0.1:{front.port}/queries.json",
         data=b'{"user": "u3", "num": 4}', method="POST")
     body = json.loads(urllib.request.urlopen(req, timeout=30).read())
+from predictionio_tpu_torch.convert import seqrec_model_from_numpy
+from predictionio_tpu_torch.models.seq_attention import SeqRecConfig, init_params
+from predictionio_tpu_torch.templates.seqrec import engine as seng
+
+cfg = SeqRecConfig(max_len=8, embed_dim=16, num_heads=2, num_blocks=1)
+seqs = rng.integers(0, 31, (6, 8)).astype(np.int32)
+srec = seqrec_model_from_numpy(
+    init_params(30, cfg, seed=0), seqs, [f"s{i}" for i in range(6)],
+    [f"i{j}" for j in range(30)], cfg, device="cpu")
+sresult = TrainResult([srec], [seng.SeqRecAlgorithm(seng.AlgorithmParams())],
+                      FirstServing(), ["seqrec"])
+sserver = EngineServer(seng.engine_factory(), sresult, "pin-seq",
+                       device="cpu", batch_max=8)
+with serve(sserver, "127.0.0.1", 0) as front:
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{front.port}/queries.json",
+        data=b'{"user": "s2", "num": 3}', method="POST")
+    sbody = json.loads(urllib.request.urlopen(req, timeout=30).read())
 print(json.dumps({
     "modules": len(names),
     "items": len(body["itemScores"]),
+    "seq_items": len(sbody["itemScores"]),
     "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                   or m == "jaxlib" or m.startswith("jaxlib.")),
     "reference": sorted(m for m in sys.modules if m == "predictionio_tpu"
@@ -69,8 +88,9 @@ def test_port_never_loads_jax_or_the_jax_package():
     import json
 
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert out["modules"] >= 15
+    assert out["modules"] >= 20
     assert out["items"] == 4
+    assert out["seq_items"] == 3
     assert out["jax"] == []
     assert out["reference"] == []
 
@@ -114,11 +134,14 @@ def test_resolve_device_pins_full_f32():
     from predictionio_tpu_torch.device import resolve_device
 
     torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
     torch.set_float32_matmul_precision("high")
     try:
         resolve_device("cpu")
         assert torch.backends.cuda.matmul.allow_tf32 is False
         assert torch.backends.cudnn.allow_tf32 is False
+        assert torch.backends.cuda.matmul \
+            .allow_bf16_reduced_precision_reduction is False
         assert torch.get_float32_matmul_precision() == "highest"
     finally:
         torch.set_float32_matmul_precision("highest")
@@ -149,13 +172,29 @@ def test_deploy_without_cuda_raises():
     assert getattr(model, "_retriever", None) is None
 
 
-def test_kernel_source_targets_hopper():
+#: every kernel source under csrc/ and the TPU kernel it names as replaced
+_REPLACES = {
+    "topk.cu": "predictionio_tpu/ops/retrieval.py::_topk_kernel",
+    "flash_attn.cu": "jax/experimental/pallas/ops/tpu/flash_attention.py"
+                     "::_flash_attention_kernel",
+}
+
+
+def test_every_kernel_source_is_known():
+    assert sorted(p.name for p in (PORT / "csrc").glob("*.cu")) == \
+        sorted(_REPLACES)
+
+
+@pytest.mark.parametrize("name", sorted(_REPLACES))
+def test_kernel_source_targets_hopper(name):
     from predictionio_tpu_torch.ops import kernels
 
-    src = kernels.SOURCE.read_text()
-    assert "predictionio_tpu/ops/retrieval.py::_topk_kernel" in src
+    path = PORT / "csrc" / name
+    src = path.read_text()
+    assert _REPLACES[name] in src
     assert "#include <torch" not in src  # plain C interface: seconds to build
-    assert kernels.SOURCE.parent == PORT / "csrc"
+    assert "#include <ATen" not in src and "#include <c10" not in src
+    assert path in kernels.SOURCES  # built by the one load() call
     assert kernels.BUILD_DIR == PORT / "_build"
     gitignore = (REPO / ".gitignore").read_text().split()
     assert "predictionio_tpu_torch/_build/" in gitignore
