@@ -49,15 +49,47 @@ no card is visible). It imports nothing of JAX or of ``predictionio_tpu``.
    template configuration (embed 48, 2 heads, max_len 64) through
    ``batch_recommend`` once, against its plain path.
 
-The ALS path (phase 3) and the seqrec path (phase 5) are each driven with
-every launch count set to 0 just before and read just after. Before the
-last line it prints one JSON object with a record per kernel entry point
-(launches on its main path, error, times and bound); the last line is
+6. Seqrec training. (a) The backward kernels (``csrc/flash_attn_bwd.cu``:
+   ``flash_attention_bwd_dkv`` and ``flash_attention_bwd_dq``) and the
+   forward that writes the logsumexp against ``blockwise_attention_bwd`` /
+   ``blockwise_attention`` at the phase-4 shapes (B8 L4096 H8 D64 causal
+   f32 is also the training shape below) and the template training shapes
+   (head dims 24 and 16): each gradient within 1e-4 (f32) or 2**-6 (bf16)
+   of its largest magnitude, the logsumexp within 1e-5, the output within
+   phase 4's tolerance and bitwise equal to the serving forward's (which
+   writes no logsumexp); median device times
+   of each kernel, the plain backward (in batch chunks) and, as a yardstick
+   the port never calls, the backward of ``scaled_dot_product_attention``.
+   (b) Full-width training steps: the phase-5 model (embed 512, 8 heads, 2
+   blocks, the ML-20M catalog) at max_len 4097, so the attention sees L
+   4096, on 8 users per step from ``seq_histories``: one step through the
+   kernels against the same step through ``blockwise_attention`` under
+   autograd (in row chunks) from the same weights, the loss within 1e-5
+   relative and every gradient leaf within 2**-3 of its largest magnitude,
+   and the same comparison with the Dense layers in f32 (nothing rounded to
+   bf16) with every leaf within 2**-5; in both, each attention call's dq,
+   dk and dv within 1e-4 of blockwise_attention_bwd on that call's inputs,
+   and a second plain step (512-key blocks) reported as the leaves' noise
+   floor; then 2 warm-up and 8 timed Adam steps on that batch: step ms,
+   real target tokens per second, device ms by kernel over one profiled
+   step, peak device memory, the loss at each step (finite, falling), and
+   one launch of each attention kernel per block per step. (c) The cyclic
+   fixture of ``tests/test_parallel_seq.py`` trained through the port's
+   ``Engine.train`` and seqrec template on the card, then served: u0's
+   next item is i0.
+
+The ALS path (phase 3), the seqrec serving path (phase 5) and the seqrec
+training path (phase 6 b and c) are each driven with every launch count set
+to 0 just before and read just after. Before the last line it prints one
+JSON object with a record per kernel entry point (launches on its main
+path, error, times and bound); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import statistics
 import subprocess
@@ -68,12 +100,13 @@ import urllib.request
 import numpy as np
 import torch
 
-from predictionio_tpu_torch.controller import FirstServing, TrainResult
+from predictionio_tpu_torch.controller import (DataSource, EngineParams,
+                                               FirstServing, TrainResult)
 from predictionio_tpu_torch.convert import (als_model_from_numpy,
                                             seqrec_model_from_numpy)
 from predictionio_tpu_torch.device import resolve_device
 from predictionio_tpu_torch.models.seq_attention import (
-    SeqRecConfig, SeqRecModel, init_params)
+    Dense, SeqRec, SeqRecConfig, SeqRecModel, init_params, seq_rec_loss)
 from predictionio_tpu_torch.obs.metrics import METRICS
 from predictionio_tpu_torch.ops import kernels
 from predictionio_tpu_torch.ops.pipeline import _capacity
@@ -81,10 +114,12 @@ from predictionio_tpu_torch.ops.retrieval import (
     PACKED_IDX_LIMIT, _pad_items, _query_shapes, topk_reference,
     topk_rows_reference)
 from predictionio_tpu_torch.parallel.ring_attention import (
-    blockwise_attention, flash_attention)
+    attention_di, blockwise_attention, blockwise_attention_bwd,
+    flash_attention)
 from predictionio_tpu_torch.templates.recommendation.engine import (
     ALSAlgorithm, AlgorithmParams, engine_factory)
 from predictionio_tpu_torch.templates.seqrec import engine as seqrec_engine
+from predictionio_tpu_torch.workflow.context import Context
 from predictionio_tpu_torch.workflow.create_server import EngineServer, serve
 
 SEED = 20
@@ -110,6 +145,39 @@ SEQ_TOL = 2.0**-7
 SEQ_CFG = SeqRecConfig(max_len=4096, embed_dim=512, num_heads=8,
                        num_blocks=2)
 N_SEQ_USERS = 20_000
+BWD_SOURCE = "predictionio_tpu_torch/csrc/flash_attn_bwd.cu"
+# the stock kernel's two backward kernels (jax 0.9.0; their pl.pallas_calls
+# are at :1121 and :1456)
+BWD_REPLACES = {
+    "flash_attention_bwd_dkv":
+        "jax/experimental/pallas/ops/tpu/flash_attention.py:796",
+    "flash_attention_bwd_dq":
+        "jax/experimental/pallas/ops/tpu/flash_attention.py:1146"}
+# backward: each gradient against its largest magnitude (f32 sums in another
+# order; bf16 P and dS roundings that an f32 difference can tip)
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0**-6}
+LSE_TOL = 1e-5
+# a training step, kernels against plain: the loss relative, and each
+# gradient leaf against its largest magnitude, as in
+# tests/test_torch_seqrec_train.py. A leaf sums its terms over 32k
+# positions with much cancellation, and a change in the last bits of the
+# attention output moves terms whole (a ReLU or a bf16 rounding tips), so
+# two correct plain steps that differ only in the order of the attention's
+# f32 sums (512- against 1024-key blocks) differ by 5.7% of the worst
+# leaf with the model's bf16 Dense layers and by 0.82% with f32 ones; the
+# kernels measured 5.5% and 1.29% (all at full width on an H100 80GB HBM3
+# at 700 W). Held to 2**-3 and 2**-5. The attention gradients inside the
+# step are held to BWD_TOL, which is where a wiring fault would show.
+STEP_LOSS_RTOL, STEP_GRAD_TOL, STEP_GRAD_TOL_F32 = 1e-5, 2.0**-3, 2.0**-5
+# seqrec training (phase 6b): the phase-5 model at max_len 4097, so the
+# attention sees L 4096; 8 users per step (cut from the trainer's 256: the
+# f32 logits [8, 4096, 26745] alone take 3.3 GiB)
+TRAIN_CFG = SeqRecConfig(max_len=4097, embed_dim=512, num_heads=8,
+                         num_blocks=2)
+TRAIN_BATCH, TRAIN_WARM, TRAIN_STEPS = 8, 2, 8
+# the cyclic fixture of tests/test_parallel_seq.py:150-175
+CYCLE_PARAMS = dict(max_len=12, embed_dim=32, num_heads=2, num_blocks=1,
+                    epochs=30, batch_size=32, lr=3e-3)
 
 
 def check(ok: bool, what: str) -> None:
@@ -768,6 +836,355 @@ def phase_seq_template(dev, *, n_users=1000, n_items=N_ITEMS) -> dict:
             "flash_attention_launches": launches}
 
 
+# -- phase 6 ------------------------------------------------------------
+
+
+#: the phase-4 shapes (B8 L4096 H8 D64 causal f32 is also the training
+#: shape of phase 6b), plus the template's training shapes: max_len 64 at
+#: head dim 24 (L 63) and the cyclic fixture's max_len 12 at head dim 16
+BWD_CASES = ATTN_CASES + [
+    ("template train B32 L63 H2 D24 causal f32", 32, 63, 2, 24, "float32",
+     True),
+    ("template train B32 L63 H2 D24 causal bf16", 32, 63, 2, 24, "bfloat16",
+     True),
+    ("cycle train B32 L11 H2 D16 causal f32", 32, 11, 2, 16, "float32", True),
+]
+TRAIN_CASE = SERVING_CASE
+#: plain backward: batch rows per chunk ([chunk, H, L, 1024] f32 blocks)
+BWD_PLAIN_CHUNK = 2
+
+
+def chunked_blockwise_lse(q, k, v, *, causal: bool,
+                          chunk: int = PLAIN_CHUNK):
+    """``blockwise_attention(..., return_lse=True)`` over ``chunk`` batch
+    rows at a time: (out, lse)."""
+    return tuple(torch.cat(part) for part in zip(*(blockwise_attention(
+        q[s:s + chunk], k[s:s + chunk], v[s:s + chunk], causal=causal,
+        return_lse=True) for s in range(0, q.shape[0], chunk))))
+
+
+def chunked_bwd(q, k, v, o, lse, do, *, causal: bool,
+                chunk: int = BWD_PLAIN_CHUNK):
+    """``blockwise_attention_bwd`` over ``chunk`` batch rows at a time."""
+    parts = [blockwise_attention_bwd(
+        q[s:s + chunk], k[s:s + chunk], v[s:s + chunk], o[s:s + chunk],
+        lse[s:s + chunk], do[s:s + chunk], causal=causal)
+        for s in range(0, q.shape[0], chunk)]
+    return tuple(torch.cat(g) for g in zip(*parts))
+
+
+def bwd_bound_ms(B, L, H, D, dtype, causal, *, dkv: bool):
+    """Least time at H100 SXM peaks: q, k, v, dO, lse and di read once, the
+    outputs (dk and dv, or dq) written once; 8*D FLOP per visible pair for
+    dK/dV (S, dP, dV, dK) and 6*D for dQ (S, dP, dQ), at the f32 peak for
+    f32 and the bf16 tensor-core peak for bf16."""
+    elem = 4 if dtype == torch.float32 else 2
+    nbytes = (4 + (2 if dkv else 1)) * B * L * H * D * elem + 2 * B * H * L * 4
+    pairs = L * (L + 1) // 2 if causal else L * L
+    flops = (8 if dkv else 6) * D * B * H * pairs
+    peak = PEAK_F32_FLOP_S if dtype == torch.float32 else PEAK_BF16_FLOP_S
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, flops / peak
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def rel_err(got, want) -> float:
+    """Max |got - want| over the largest |want|."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp(min=1e-30))
+
+
+def bwd_case(dev, name, B, L, H, D, dtype, causal, *, timing):
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7 * B * L + D)
+    q, k, v, do = (torch.randn(B, L, H, D, generator=gen, device=dev)
+                   .mul_(0.5).to(dt) for _ in range(4))
+    lse = torch.empty(B, H, L, device=dev)
+    o = kernels.flash_attention_fwd(q, k, v, causal=causal, lse=lse)
+    ref_o, ref_lse = chunked_blockwise_lse(q, k, v, causal=causal)
+    # the forward that writes the logsumexp, held as phase 4 holds the
+    # serving forward
+    o_err, o_tol = float((o.float() - ref_o.float()).abs().max()), ATTN_TOL[dt]
+    check(o.dtype == dt and o.shape == q.shape
+          and bool(torch.allclose(o.float(), ref_o.float(), rtol=o_tol,
+                                  atol=o_tol)),
+          f"{name}: the forward's output with the logsumexp disagrees with "
+          f"blockwise_attention (max |err| {o_err:.3g}, tolerance {o_tol:.3g})")
+    check(torch.equal(o, kernels.flash_attention_fwd(q, k, v, causal=causal)),
+          f"{name}: the forward's output changes when it writes the "
+          f"logsumexp")
+    lse_err = float((lse - ref_lse).abs().max())
+    check(bool(torch.allclose(lse, ref_lse, rtol=LSE_TOL, atol=LSE_TOL)),
+          f"{name}: the forward's logsumexp disagrees with "
+          f"blockwise_attention ({lse_err:.3g})")
+    del ref_o, ref_lse
+    di = attention_di(o, do)
+    dk, dv = kernels.flash_attention_bwd_dkv(q, k, v, do, lse, di,
+                                             causal=causal)
+    dq = kernels.flash_attention_bwd_dq(q, k, v, do, lse, di, causal=causal)
+    want = chunked_bwd(q, k, v, o, lse, do, causal=causal)
+    tol = BWD_TOL[dt]
+    rec = {"case": name, "shape": [B, L, H, D], "dtype": dtype,
+           "causal": causal, "o_max_abs_err": o_err,
+           "lse_max_abs_err": lse_err, "tol": tol}
+    for key, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        check(got.dtype == dt and got.shape == q.shape
+              and bool(torch.isfinite(got).all()),
+              f"{name}: {key} {got.dtype} {tuple(got.shape)} or not finite")
+        rec[f"{key}_max_abs_err"] = float((got.float() - w.float()).abs().max())
+        rec[f"{key}_rel_err"] = rel_err(got, w)
+        check(rec[f"{key}_rel_err"] <= tol,
+              f"{name}: {key} disagrees with blockwise_attention_bwd "
+              f"({rec[f'{key}_rel_err']:.3g} of its largest magnitude, "
+              f"tolerance {tol:.3g})")
+    del dq, dk, dv, want
+    if timing:
+        iters, reps = (2, 3) if B * L * L * H >= 1 << 34 else (10, 5)
+        rec["dkv_ms"] = device_ms(lambda: kernels.flash_attention_bwd_dkv(
+            q, k, v, do, lse, di, causal=causal), iters, reps)
+        rec["dq_ms"] = device_ms(lambda: kernels.flash_attention_bwd_dq(
+            q, k, v, do, lse, di, causal=causal), iters, reps)
+        rec["plain_ms"] = device_ms(lambda: chunked_bwd(
+            q, k, v, o, lse, do, causal=causal), iters, reps)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal)
+        dot = do.transpose(1, 2)
+        rec["library_ms"] = device_ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True), iters, reps)
+        del out
+        for key, dkv in (("dkv", True), ("dq", False)):
+            rec[f"{key}_bound_ms"], rec[f"{key}_bound_by"] = bwd_bound_ms(
+                B, L, H, D, dt, causal, dkv=dkv)
+    return rec
+
+
+def phase_attention_bwd(dev, cases=BWD_CASES, *, timing=True) -> list:
+    recs = []
+    for case in cases:
+        recs.append(bwd_case(dev, *case, timing=timing))
+        print("[attention-bwd] " + json.dumps(recs[-1]), flush=True)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return recs
+
+
+def leaf_grads(net: SeqRec) -> dict:
+    return {name: p.grad.detach().clone() for name, p in
+            net.named_parameters()}
+
+
+def real_targets(x) -> torch.Tensor:
+    return torch.clamp((x[:, 1:] > 0).sum(), min=1).float()
+
+
+def step_grads(net: SeqRec, x, attention, chunk: int):
+    """The loss and leaf gradients of one step on ``x``, ``chunk`` rows at a
+    time (each chunk's mean loss weighted by its share of the real targets,
+    so the parts add up to the batch's loss)."""
+    net.zero_grad(set_to_none=True)
+    count, total = real_targets(x), 0.0
+    for s in range(0, len(x), chunk):
+        part = x[s:s + chunk]
+        loss = seq_rec_loss(net, part, attention) * (real_targets(part)
+                                                     / count)
+        loss.backward()
+        total += float(loss.detach())
+    grads = leaf_grads(net)
+    net.zero_grad(set_to_none=True)
+    return total, grads
+
+
+def recording_attention(records: list):
+    """``flash_attention`` that records each call's q, k, v, the gradient
+    that reaches its output and the gradients its backward returns."""
+    def attention(q, k, v, *, causal):
+        rec = {"causal": causal, "qkv": [t.detach() for t in (q, k, v)]}
+        for key, t in zip(("dq", "dk", "dv"), (q, k, v)):
+            t.register_hook(lambda g, key=key: rec.__setitem__(key,
+                                                               g.detach()))
+        o = flash_attention(q, k, v, causal=causal)
+        o.register_hook(lambda g: rec.__setitem__("do", g.detach()))
+        records.append(rec)
+        return o
+    return attention
+
+
+def step_compare(dev, net: SeqRec, x, *, chunk: int, grad_tol: float,
+                 what: str) -> dict:
+    """One training step's loss and gradients through the kernels against
+    the same step with attention through ``blockwise_attention`` under
+    autograd, ``chunk`` rows at a time. Each attention call's dq, dk, dv
+    in the kernel step are held at the kernels' own tolerance against
+    ``blockwise_attention_bwd`` on that call's inputs. A second plain step
+    with 512-key blocks in place of 1024 (another order of the same f32
+    sums) gives the leaves' noise floor, which is reported."""
+    records = []
+    got_loss, got = step_grads(net, x, recording_attention(records), len(x))
+    want_loss, want = step_grads(net, x, blockwise_attention, chunk)
+    _, other = step_grads(net, x, functools.partial(blockwise_attention,
+                                                    block_size=512), chunk)
+    check(abs(got_loss - want_loss) <= STEP_LOSS_RTOL * abs(want_loss),
+          f"{what}: loss {got_loss} through the kernels, "
+          f"{want_loss} through the plain path")
+    errs = {name: rel_err(got[name], want[name]) for name in want}
+    worst = max(errs, key=errs.get)
+    check(errs[worst] <= grad_tol,
+          f"{what}: gradient {worst} differs from the plain path by "
+          f"{errs[worst]:.3g} of its largest magnitude (tolerance "
+          f"{grad_tol:.3g})")
+    floor = {name: rel_err(other[name], want[name]) for name in want}
+    attn_err = 0.0
+    for i, rec in enumerate(records):
+        q, k, v = rec["qkv"]
+        o, lse = chunked_blockwise_lse(q, k, v, causal=rec["causal"])
+        for key, w in zip(("dq", "dk", "dv"), chunked_bwd(
+                q, k, v, o, lse, rec["do"], causal=rec["causal"])):
+            err = rel_err(rec[key], w)
+            check(err <= BWD_TOL[torch.float32],
+                  f"{what}: attention call {i}'s {key} differs from "
+                  f"blockwise_attention_bwd by {err:.3g} of its largest "
+                  f"magnitude")
+            attn_err = max(attn_err, err)
+    return {"loss_kernels": got_loss, "loss_plain": want_loss,
+            "grad_worst_leaf": worst, "grad_worst_rel_err": errs[worst],
+            "grad_tol": grad_tol, "plain_vs_plain_worst_leaf": max(
+                floor, key=floor.get),
+            "plain_vs_plain_worst_rel_err": max(floor.values()),
+            "attention_calls": len(records),
+            "attention_grad_worst_rel_err": attn_err}
+
+
+@contextlib.contextmanager
+def f32_dense():
+    """The port's Dense layers as plain f32 products plus bias, as
+    tests/test_torch_seqrec_train.py patches them: with nothing rounded to
+    bf16, a step through the kernels and one through the plain path differ
+    only in the order of f32 sums."""
+    forward = Dense.forward
+    Dense.forward = lambda self, x: x @ self.kernel + self.bias
+    try:
+        yield
+    finally:
+        Dense.forward = forward
+
+
+def phase_train(dev, cfg=TRAIN_CFG, *, n_items=N_ITEMS, batch=TRAIN_BATCH,
+                warm=TRAIN_WARM, steps=TRAIN_STEPS, chunk=BWD_PLAIN_CHUNK,
+                profile=True) -> dict:
+    """Seqrec training steps at full width; the caller counts launches."""
+    rng = np.random.default_rng(SEED + 4)
+    x = torch.from_numpy(seq_histories(rng, batch, cfg.max_len,
+                                       n_items)).to(dev)
+    tokens = int((x[:, 1:] > 0).sum())
+    tree = init_params(n_items, cfg, SEED)
+    net = SeqRec(n_items, cfg).load_flax(tree).to(dev)
+    compare = step_compare(dev, net, x, chunk=chunk, grad_tol=STEP_GRAD_TOL,
+                           what="training step")
+    with f32_dense():
+        compare_f32 = step_compare(dev, net, x, chunk=chunk,
+                                   grad_tol=STEP_GRAD_TOL_F32,
+                                   what="training step with f32 Dense layers")
+    reset_launches()
+    opt = torch.optim.Adam(net.parameters(), lr=cfg.lr, betas=(0.9, 0.999),
+                           eps=1e-8)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = seq_rec_loss(net, x)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    losses = [float(step()) for _ in range(warm)]
+    per_step = dict(kernels.LAUNCHES)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(steps):
+        if dev.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            loss = step()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            loss = step()
+            times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    per_step = {key: (kernels.LAUNCHES[key] - per_step[key]) / steps
+                for key in ("flash_attention", "flash_attention_bwd_dkv",
+                            "flash_attention_bwd_dq")}
+    check(all(n == cfg.num_blocks for n in per_step.values()),
+          f"launches per step {per_step}, want {cfg.num_blocks} of each")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"training losses not finite and falling: {losses}")
+    rec = {"config": {"max_len": cfg.max_len, "embed_dim": cfg.embed_dim,
+                      "num_heads": cfg.num_heads,
+                      "num_blocks": cfg.num_blocks, "n_items": n_items,
+                      "batch": batch},
+           "compare": compare, "compare_f32_dense": compare_f32,
+           "target_tokens": tokens,
+           "launches_per_step": per_step,
+           "step_ms": times, "step_ms_median": statistics.median(times),
+           "tokens_per_s": tokens / (statistics.median(times) / 1e3),
+           "losses": losses}
+    if dev.type == "cuda":
+        rec["peak_device_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    if profile:
+        busy, wall = device_profile(step)
+        rec["profiled_step_wall_ms"] = wall * 1e3
+        rec["device_ms_by_kernel"] = dict(sorted(
+            busy.items(), key=lambda kv: -kv[1])[:12])
+        rec["profiled_step_device_ms"] = sum(busy.values())
+    return rec
+
+
+def cyclic_events(n_users=32, n_items=6, hist=12):
+    """User u's history cycles items (u % k, u%k+1, ...): the fixture of
+    tests/test_parallel_seq.py."""
+    users = [f"u{u}" for u in range(n_users) for _ in range(hist)]
+    items = [f"i{(u + t) % n_items}" for u in range(n_users)
+             for t in range(hist)]
+    times = [float(t) for _ in range(n_users) for t in range(hist)]
+    return (np.asarray(users, dtype=object), np.asarray(items, dtype=object),
+            np.asarray(times))
+
+
+class CyclicEvents(DataSource):
+    """An in-memory data source (the event store comes with the storage
+    slice)."""
+
+    def read_training(self, ctx):
+        return seqrec_engine.TrainingData(*cyclic_events())
+
+
+def phase_train_template(dev) -> dict:
+    """The cyclic fixture through the port's Engine.train and seqrec
+    template on ``dev``, then served: u0 last saw i5, so its next is i0."""
+    engine = seqrec_engine.engine_factory()
+    engine.data_source_classes = {"": CyclicEvents}
+    ep = EngineParams(algorithm_params_list=(
+        ("seqrec", seqrec_engine.AlgorithmParams(**CYCLE_PARAMS)),))
+    ctx = Context(device=dev)
+    t0 = time.perf_counter()
+    result = engine.train(ctx, ep)
+    train_s = time.perf_counter() - t0
+    model = result.models[0]
+    check(model.device is not None and model.device.type == dev.type,
+          f"trained seqrec model not on {dev.type}")
+    top = model.recommend_products("u0", 2, exclude_seen=False)
+    check(bool(top) and top[0][0] == "i0",
+          f"the trained cyclic model recommends {top} to u0, want i0 first")
+    return {"params": CYCLE_PARAMS, "train_s": train_s, "u0_top": top,
+            "phases": [[p, dt] for p, dt in ctx.phase_times]}
+
+
 # -- main ---------------------------------------------------------------
 
 
@@ -868,8 +1285,45 @@ def main() -> int:
           flush=True)
     clock.lap("5 seqrec serving")
 
+    bwd = phase_attention_bwd(dev)
+    clock.lap("6a attention backward kernels")
+    print(f"[attention-bwd] {len(bwd)} fixtures match "
+          f"blockwise_attention_bwd (largest error "
+          f"{max(r[f'{g}_rel_err'] for r in bwd for g in ('dq', 'dk', 'dv')):.3g}"
+          f" of a gradient's largest magnitude)", flush=True)
+
+    # the seqrec training path: full-width steps, then the template trained
+    # and served, counted from zero (phase_train resets the counts after
+    # its kernel-vs-plain step)
+    train = phase_train(dev)
+    train["card"] = smi
+    torch.cuda.empty_cache()
+    template = phase_train_template(dev)
+    train_launches = dict(kernels.LAUNCHES)
+    check(all(train_launches[key] > 0 for key in (
+        "flash_attention", "flash_attention_bwd_dkv",
+        "flash_attention_bwd_dq")),
+          f"an attention kernel never launched on the training path: "
+          f"{train_launches}")
+    print("[train] " + json.dumps(train), flush=True)
+    print("[train-template] " + json.dumps({**template,
+                                            "launches": train_launches}),
+          flush=True)
+    clock.lap("6b-c seqrec training")
+
     by_case = {r["case"]: r for r in recs}
     by_attn = {r["case"]: r for r in attn}
+    tb = {r["case"]: r for r in bwd}[TRAIN_CASE]
+    bwd_records = []
+    for entry, key, grads in (("flash_attention_bwd_dkv", "dkv", ("dk", "dv")),
+                              ("flash_attention_bwd_dq", "dq", ("dq",))):
+        bwd_records.append(kernel_record(entry, train_launches[entry], {
+            "max_abs_err": max(tb[f"{g}_max_abs_err"] for g in grads),
+            "ms": tb[f"{key}_ms"], "plain_ms": tb["plain_ms"],
+            "bound_ms": tb[f"{key}_bound_ms"],
+            "bound_by": tb[f"{key}_bound_by"],
+            "library_ms": tb["library_ms"]},
+            source=BWD_SOURCE, replaces=BWD_REPLACES[entry]))
     print(json.dumps({"kernels": [
         kernel_record("topk", launches["topk"],
                       by_case["ml20m B=128 k=10"]),
@@ -878,6 +1332,7 @@ def main() -> int:
         kernel_record("flash_attention", seq_launches["flash_attention"],
                       by_attn[SERVING_CASE], source=FLASH_SOURCE,
                       replaces=FLASH_REPLACES),
+        *bwd_records,
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -6,9 +6,10 @@ datasource/preparator/algorithm/serving classes and builds them from
 engine params.
 
 Copied from ``predictionio_tpu/controller/engine.py``: the registry, the
-``make_*`` component constructors, ``engine_params_from_json`` and ``TrainResult``.
-``Engine.train`` and ``Engine.eval`` come with the training and evaluation
-slices of the port.
+``make_*`` component constructors, ``Engine.train`` (read, sanity check,
+prepare, train each algorithm) with its stop-after exceptions,
+``engine_params_from_json`` and ``TrainResult``. ``Engine.eval`` comes with
+the evaluation slice of the port.
 """
 
 from __future__ import annotations
@@ -17,7 +18,8 @@ import dataclasses
 import logging
 from typing import Any, Generic, Mapping, TypeVar
 
-from .components import Algorithm, DataSource, Doer, Preparator, Serving
+from .components import (Algorithm, DataSource, Doer, Preparator,
+                         SanityCheck, Serving)
 from .params import EngineParams, parse_params
 
 log = logging.getLogger("predictionio_tpu_torch.engine")
@@ -29,11 +31,21 @@ Q = TypeVar("Q")
 P = TypeVar("P")
 A = TypeVar("A")
 
-__all__ = ["Engine", "TrainResult"]
+__all__ = ["Engine", "StopAfterPrepareInterruption",
+           "StopAfterReadInterruption", "TrainResult"]
 
 
 def _params_class_of(cls: type) -> type | None:
     return getattr(cls, "params_class", None)
+
+
+def _maybe_sanity_check(obj: Any, skip: bool, what: str) -> None:
+    """(reference Engine.scala:610-666)"""
+    if skip:
+        return
+    if isinstance(obj, SanityCheck):
+        log.info("%s supports data sanity check. Performing check.", what)
+        obj.sanity_check()
 
 
 @dataclasses.dataclass
@@ -95,6 +107,42 @@ class Engine(Generic[TD, EI, PD, Q, P, A]):
         name, params = ep.serving_params
         return Doer(self._pick(self.serving_classes, name, "serving"), params)
 
+    # -- training (object Engine.train, Engine.scala:583-670) -------------
+    def train(self, ctx, engine_params: EngineParams) -> TrainResult:
+        wp = getattr(ctx, "workflow_params", None)
+        skip_sanity = bool(getattr(wp, "skip_sanity_check", False))
+        stop_after_read = bool(getattr(wp, "stop_after_read", False))
+        stop_after_prepare = bool(getattr(wp, "stop_after_prepare", False))
+
+        from ..workflow.tracing import phase_timer
+
+        data_source = self.make_data_source(engine_params)
+        with phase_timer(ctx, "datasource.read_training"):
+            td = data_source.read_training(ctx)
+        _maybe_sanity_check(td, skip_sanity, "TrainingData")
+        if stop_after_read:
+            log.info("Stopping here because --stop-after-read is set.")
+            raise StopAfterReadInterruption()
+
+        preparator = self.make_preparator(engine_params)
+        with phase_timer(ctx, "preparator.prepare"):
+            pd = preparator.prepare(ctx, td)
+        _maybe_sanity_check(pd, skip_sanity, "PreparedData")
+        if stop_after_prepare:
+            log.info("Stopping here because --stop-after-prepare is set.")
+            raise StopAfterPrepareInterruption()
+
+        names, algos = self.make_algorithms(engine_params)
+        models = []
+        for i, (name, algo) in enumerate(zip(names, algos)):
+            log.info("Training algorithm %r (%s)", name, type(algo).__name__)
+            with phase_timer(ctx, f"train[{name or type(algo).__name__}#{i}]"):
+                m = algo.train(ctx, pd)
+            _maybe_sanity_check(m, skip_sanity, f"Model of {type(algo).__name__}")
+            models.append(m)
+        serving = self.make_serving(engine_params)
+        return TrainResult(models, algos, serving, names)
+
     # -- engine.json parsing (Engine.jValueToEngineParams, :328-384) -------
     def engine_params_from_json(self, variant: Mapping[str, Any]) -> EngineParams:
         def one(key: str, classes: Mapping[str, type]) -> tuple[str, Any]:
@@ -123,3 +171,11 @@ class Engine(Generic[TD, EI, PD, Q, P, A]):
             algorithm_params_list=tuple(algo_list),
             serving_params=one("serving", self.serving_classes),
         )
+
+
+class StopAfterReadInterruption(Exception):
+    """(reference WorkflowParams.stopAfterRead flow, Engine.scala:617-621)"""
+
+
+class StopAfterPrepareInterruption(Exception):
+    """(Engine.scala:633-638)"""

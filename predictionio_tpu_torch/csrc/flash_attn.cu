@@ -38,6 +38,15 @@
 // add exactly nothing to the f32 sums); the ragged last tile is masked.
 // This first version uses CUDA cores for both types: the bf16 path does not
 // reach the tensor cores (mma / wgmma), which is left to a later change.
+//
+// Residual for the backward (csrc/flash_attn_bwd.cu). Given an lse buffer
+// [B, H, L] f32, the kernel also writes each row's logsumexp m + log(l) from
+// its final running max m and sum l. The TPU kernel saves l and m as two
+// buffers and its backward forms exp(S - m) / l; one logsumexp gives the same
+// P = exp(S - lse) with one buffer and one load fewer per row. Whether to
+// write it is one test of the pointer per row in the epilogue, outside the
+// output arithmetic: the serving path passes no buffer and its output bits
+// are the same as without it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,8 +86,8 @@ constexpr int smem_floats() {
 template <typename T, int DP, bool kCausal>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o, int L, int H, int D,
-          float scale) {
+          const T* __restrict__ v, T* __restrict__ o,
+          float* __restrict__ lse, int L, int H, int D, float scale) {
   extern __shared__ __align__(16) float smem[];
   float* Qt = smem;                              // Qt[d * kStrideT + i]
   float* Kt = Qt + DP * kStrideT;                // Kt[d * kStrideT + j]
@@ -196,6 +205,9 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
       lt += __shfl_xor_sync(0xffffffffu, lt, off);
     const int row = q0 + 4 * ty + a;
     if (row >= L) continue;
+    // every valid row sees a key (key 0 under the causal mask): lt > 0
+    if (lse && tx == 0)
+      lse[((long long)b * H + h) * L + row] = m[a] + logf(lt);
     const float den = fmaxf(lt, 1e-20f);
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
@@ -223,9 +235,9 @@ cudaError_t init_type() {
 }
 
 template <typename T, int DP>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
-                   int L, int H, int D, float scale, int causal,
-                   cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   float* lse, int B, int L, int H, int D, float scale,
+                   int causal, cudaStream_t stream) {
   const dim3 grid((L + kTileM - 1) / kTileM, H, B);
   const size_t smem = smem_floats<DP>() * sizeof(float);
   const T* qp = static_cast<const T*>(q);
@@ -233,21 +245,25 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B,
   const T* vp = static_cast<const T*>(v);
   T* op = static_cast<T*>(o);
   if (causal)
-    flash_fwd<T, DP, true><<<grid, kThreads, smem, stream>>>(qp, kp, vp, op, L,
-                                                             H, D, scale);
+    flash_fwd<T, DP, true><<<grid, kThreads, smem, stream>>>(qp, kp, vp, op,
+                                                             lse, L, H, D,
+                                                             scale);
   else
-    flash_fwd<T, DP, false><<<grid, kThreads, smem, stream>>>(qp, kp, vp, op, L,
-                                                              H, D, scale);
+    flash_fwd<T, DP, false><<<grid, kThreads, smem, stream>>>(qp, kp, vp, op,
+                                                              lse, L, H, D,
+                                                              scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_type(const void* q, const void* k, const void* v, void* o,
-                        int B, int L, int H, int D, float scale, int causal,
-                        cudaStream_t stream) {
-  if (D <= 32) return launch<T, 32>(q, k, v, o, B, L, H, D, scale, causal, stream);
-  if (D <= 64) return launch<T, 64>(q, k, v, o, B, L, H, D, scale, causal, stream);
-  return launch<T, 128>(q, k, v, o, B, L, H, D, scale, causal, stream);
+                        float* lse, int B, int L, int H, int D, float scale,
+                        int causal, cudaStream_t stream) {
+  if (D <= 32)
+    return launch<T, 32>(q, k, v, o, lse, B, L, H, D, scale, causal, stream);
+  if (D <= 64)
+    return launch<T, 64>(q, k, v, o, lse, B, L, H, D, scale, causal, stream);
+  return launch<T, 128>(q, k, v, o, lse, B, L, H, D, scale, causal, stream);
 }
 
 }  // namespace
@@ -263,20 +279,23 @@ int pio_flash_attn_init() {
 
 // q, k, v, o: [B, L, H, D] contiguous device buffers of one type (dtype 0 =
 // f32, 1 = bf16); 8 <= D <= 128 with D % 8 == 0, L >= 1, B and H <= 65535
-// (the wrapper checks). Launches on `stream`; returns the cudaError of the
-// launch.
+// (the wrapper checks). lse: null, or a [B, H, L] f32 device buffer that
+// receives each row's logsumexp. Launches on `stream`; returns the cudaError
+// of the launch.
 int pio_flash_attn_fwd(const void* q, const void* k, const void* v, void* o,
-                       int B, int L, int H, int D, int dtype, int causal,
-                       float scale, void* stream_ptr) {
+                       void* lse, int B, int L, int H, int D, int dtype,
+                       int causal, float scale, void* stream_ptr) {
   if (B <= 0 || L <= 0 || H <= 0 || D < 8 || D > 128 || D % 8 || B > 65535 ||
       H > 65535 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  float* lp = static_cast<float*>(lse);
   const cudaError_t err =
       dtype == 0
-          ? launch_type<float>(q, k, v, o, B, L, H, D, scale, causal, stream)
-          : launch_type<__nv_bfloat16>(q, k, v, o, B, L, H, D, scale, causal,
-                                       stream);
+          ? launch_type<float>(q, k, v, o, lp, B, L, H, D, scale, causal,
+                               stream)
+          : launch_type<__nv_bfloat16>(q, k, v, o, lp, B, L, H, D, scale,
+                                       causal, stream);
   return (int)err;
 }
 

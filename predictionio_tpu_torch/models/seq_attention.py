@@ -1,11 +1,11 @@
-"""Self-attentive sequential recommender (SASRec-style): the serving half.
+"""Self-attentive sequential recommender (SASRec-style): training and serving.
 
 The port of ``predictionio_tpu/models/seq_attention.py``: ``SeqRecConfig``,
 ``build_sequences`` (numpy, copied), the transformer of ``_make_model`` as
 the ``SeqRec`` module, its last-position forward (``_jitted_apply_last``'s
-counterpart) and ``SeqRecModel``'s batched next-item serving. Training
-(``train_seq_rec``, which needs the attention kernel's backward) comes with
-the seqrec training slice.
+counterpart), ``SeqRecModel``'s batched next-item serving, and
+``train_seq_rec``: Adam on the masked next-item cross-entropy, each block's
+attention gradient through the flash-attention backward kernels.
 
 Layout: histories are LEFT-padded (pad id 0, real items 1..n_items) so the
 last position always holds the newest interaction; serving scores the last
@@ -41,6 +41,7 @@ __all__ = [
     "SeqRecModel",
     "build_sequences",
     "init_params",
+    "seq_rec_loss",
     "train_seq_rec",
 ]
 
@@ -151,8 +152,10 @@ class Block(nn.Module):
         H = self.num_heads
         qkv = self.qkv(self.ln0(h)).view(B, L, 3, H, D // H)
         # one pass to f32 that leaves q, k and v each contiguous [B, L, H, hd]
+        # (a copy even where qkv is f32 already, as the kernels need it)
         q, k, v = qkv.permute(2, 0, 1, 3, 4).to(
-            torch.float32, memory_format=torch.contiguous_format).unbind(0)
+            torch.float32, memory_format=torch.contiguous_format,
+            copy=True).unbind(0)
         o = attention(q, k, v, causal=True).reshape(B, L, D)
         h = h + self.out(o).to(torch.float32)
         x = torch.relu(self.up(self.ln1(h)))
@@ -224,6 +227,28 @@ class SeqRec(nn.Module):
         put(self.ln_f.scale, p["LayerNorm_0"]["scale"])
         put(self.ln_f.bias, p["LayerNorm_0"]["bias"])
         return self
+
+    @torch.no_grad()
+    def to_flax(self) -> dict:
+        """This module's weights as the flax tree ``load_flax`` reads
+        (``{"params": ...}``, numpy f32 leaves): the form serving,
+        ``convert`` and model blobs keep."""
+        def get(t: torch.Tensor) -> np.ndarray:
+            return t.detach().to("cpu", torch.float32).numpy().copy()
+
+        def ln(m: LayerNorm) -> dict:
+            return {"scale": get(m.scale), "bias": get(m.bias)}
+
+        p: dict = {"item_embed": {"embedding": get(self.item_embed)},
+                   "pos": get(self.pos)}
+        for i, block in enumerate(self.blocks):
+            p[f"Block_{i}"] = {"LayerNorm_0": ln(block.ln0),
+                               "LayerNorm_1": ln(block.ln1)} | {
+                f"Dense_{j}": {"kernel": get(d.kernel), "bias": get(d.bias)}
+                for j, d in enumerate((block.qkv, block.out, block.up,
+                                       block.down))}
+        p["LayerNorm_0"] = ln(self.ln_f)
+        return {"params": p}
 
 
 def init_params(n_items: int, cfg: SeqRecConfig, seed: int) -> dict:
@@ -386,12 +411,63 @@ class SeqRecModel:
         self._lock = threading.Lock()
 
 
-def train_seq_rec(seqs, user_ids, item_ids, cfg, mesh=None) -> SeqRecModel:
-    """Not ported yet: seqrec training needs the attention kernel's
-    backward (the dK/dV and dQ kernels), Adam and the epoch loop; they
-    come with the seqrec training slice."""
-    raise NotImplementedError(
-        "seqrec training is not ported yet (it comes with the seqrec "
-        "training slice: the flash-attention backward kernels and "
-        "train_seq_rec); build the model with "
-        "predictionio_tpu_torch.convert.seqrec_model_from_numpy")
+_default_init = init_params
+
+
+def seq_rec_loss(net: SeqRec, batch: torch.Tensor,
+                 attention=flash_attention) -> torch.Tensor:
+    """The trainer's loss on histories ``batch [B, max_len]``: the model on
+    ``batch[:, :-1]``, softmax cross-entropy against ``batch[:, 1:]``, pad
+    targets (0) masked, averaged over the real targets (``loss_fn`` of the
+    JAX trainer)."""
+    inp, tgt = batch[:, :-1], batch[:, 1:].long()
+    logits = net(inp, attention)  # [B, L-1, vocab]
+    ce = torch.nn.functional.cross_entropy(
+        logits.reshape(-1, logits.shape[-1]), tgt.reshape(-1),
+        reduction="none")
+    mask = (tgt.reshape(-1) > 0).to(torch.float32)
+    return (ce * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def train_seq_rec(seqs: np.ndarray, user_ids: BiMap, item_ids: BiMap,
+                  cfg: SeqRecConfig, *, device=None,
+                  init_params=None) -> SeqRecModel:
+    """Next-item prediction over left-padded histories ``seqs [users,
+    max_len]`` on one device (``None`` means CUDA; raises without one). The
+    port of the JAX trainer: weights from ``init_params`` (a flax-named
+    tree, default ``init_params(n_items, cfg, cfg.seed)``; the JAX trainer
+    draws its init with ``jax.random``, which torch cannot reproduce, so a
+    caller that wants its numbers passes that tree), ``torch.optim.Adam``
+    with optax.adam's defaults, the masked-mean next-item cross-entropy,
+    users with an empty history dropped, batches of ``min(batch_size,
+    users)`` with the tail batch wrapping, and every epoch reshuffled by a
+    ``torch.Generator`` seeded from ``cfg.seed`` and staged on the device
+    as one ``[n_batches, bs, max_len]`` tensor. ``seq_parallel`` changes
+    nothing on one device. Returns a ``SeqRecModel`` with the trained
+    flax-named ``params``, attached to the device."""
+    dev = resolve_device(device)
+    n_items = len(item_ids)
+    tree = (init_params if init_params is not None
+            else _default_init(n_items, cfg, cfg.seed))
+    net = SeqRec(n_items, cfg).load_flax(tree).to(dev)
+    opt = torch.optim.Adam(net.parameters(), lr=cfg.lr, betas=(0.9, 0.999),
+                           eps=1e-8)
+    seqs = np.ascontiguousarray(seqs, np.int32)
+    active = np.nonzero((seqs > 0).any(axis=1))[0]
+    n = len(active)
+    bs = min(cfg.batch_size, max(1, n))
+    n_batches = -(-n // bs)  # the tail batch wraps so no user is dropped
+    gen = torch.Generator().manual_seed(cfg.seed)
+    for _ep in range(cfg.epochs if n else 0):
+        order = torch.randperm(n, generator=gen).numpy()
+        idx = order[np.arange(n_batches * bs) % n]
+        batches = torch.from_numpy(
+            seqs[active[idx]].reshape(n_batches, bs, -1)).to(dev)
+        for batch in batches:
+            opt.zero_grad(set_to_none=True)
+            seq_rec_loss(net, batch).backward()
+            opt.step()
+    model = SeqRecModel(params=net.to_flax(), seqs=seqs, user_ids=user_ids,
+                        item_ids=item_ids, config=cfg)
+    model.attach_model(dev)
+    return model

@@ -8,11 +8,17 @@
 - ``csrc/flash_attn.cu`` replaces jax's stock Pallas TPU flash-attention
   forward (``_flash_attention_kernel``), which
   ``predictionio_tpu/parallel/ring_attention.py::flash_attention`` calls.
-  Entry point ``flash_attention_fwd``, for CUDA tensors only; the CPU
-  dispatch to the plain version lives in
-  ``parallel/ring_attention.py::flash_attention``.
+  Entry point ``flash_attention_fwd``, which also writes the per-row
+  logsumexp when given a buffer for it.
+- ``csrc/flash_attn_bwd.cu`` replaces the same file's two backward kernels
+  (``_flash_attention_dkv_kernel``, ``_flash_attention_dq_kernel``).
+  Entry points ``flash_attention_bwd_dkv`` and ``flash_attention_bwd_dq``.
 
-Both sources are compiled with ``nvcc`` for ``sm_90a`` in one
+The attention entry points take CUDA tensors only; the CPU dispatch to the
+plain versions (``blockwise_attention``, ``blockwise_attention_bwd``) lives
+in ``parallel/ring_attention.py``.
+
+The sources are compiled with ``nvcc`` for ``sm_90a`` in one
 ``torch.utils.cpp_extension.load`` call on first use, into
 ``predictionio_tpu_torch/_build/``, and bound with ``ctypes``: they have a
 plain C interface and include no PyTorch header, which keeps the build to
@@ -30,14 +36,18 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["LAUNCHES", "build", "flash_attention_fwd", "topk", "topk_rows"]
+__all__ = ["LAUNCHES", "build", "flash_attention_bwd_dkv",
+           "flash_attention_bwd_dq", "flash_attention_fwd", "topk",
+           "topk_rows"]
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "topk.cu", _PKG / "csrc" / "flash_attn.cu")
+SOURCES = tuple(_PKG / "csrc" / name for name in (
+    "topk.cu", "flash_attn.cu", "flash_attn_bwd.cu"))
 BUILD_DIR = _PKG / "_build"
 
 #: Kernel launches per entry point (plain integers; reset by assigning 0).
-LAUNCHES = {"topk": 0, "topk_rows": 0, "flash_attention": 0}
+LAUNCHES = {"topk": 0, "topk_rows": 0, "flash_attention": 0,
+            "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -68,10 +78,18 @@ def build() -> ctypes.CDLL:
         lib.pio_topk.restype = i
         lib.pio_flash_attn_init.argtypes = []
         lib.pio_flash_attn_init.restype = i
-        lib.pio_flash_attn_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i,
-                                           ctypes.c_float, p]
+        f = ctypes.c_float
+        lib.pio_flash_attn_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
+                                           f, p]
         lib.pio_flash_attn_fwd.restype = i
-        for init in (lib.pio_topk_init, lib.pio_flash_attn_init):
+        lib.pio_flash_attn_bwd_init.argtypes = []
+        lib.pio_flash_attn_bwd_init.restype = i
+        lib.pio_flash_attn_bwd_dkv.argtypes = [p] * 8 + [i] * 6 + [f, p]
+        lib.pio_flash_attn_bwd_dkv.restype = i
+        lib.pio_flash_attn_bwd_dq.argtypes = [p] * 7 + [i] * 6 + [f, p]
+        lib.pio_flash_attn_bwd_dq.restype = i
+        for init in (lib.pio_topk_init, lib.pio_flash_attn_init,
+                     lib.pio_flash_attn_bwd_init):
             err = init()
             if err:
                 raise RuntimeError(f"{init.__name__} failed: cudaError {err}")
@@ -172,40 +190,115 @@ def topk_rows(rows: torch.Tensor, qtab: torch.Tensor, items: torch.Tensor,
 _ATTN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool) -> torch.Tensor:
-    """``softmax(q k^T / sqrt(D), causal mask) v`` for CUDA tensors
-    ``[B, L, H, D]`` of one type (f32 or bf16), contiguous and 16-byte
-    aligned, with ``L >= 1`` and a head dim ``D`` that is a multiple of 8
-    up to 128. Returns a new ``[B, L, H, D]`` tensor of ``q.dtype``.
-    Anything else raises."""
+#: the backward kernels' grid holds at most this many 64-row tiles
+_ATTN_MAX_TILES = 65535
+
+
+def _attn_args(name: str, qlike: dict, rows: dict) -> tuple[int, ...]:
+    """Check the attention tensors: ``qlike`` [B, L, H, D] of one type (f32
+    or bf16) and ``rows`` [B, H, L] f32, all CUDA, contiguous and 16-byte
+    aligned; return (B, L, H, D). Anything the kernels do not take raises
+    ``ValueError`` naming ``name``."""
+    q = next(iter(qlike.values()))
     if q.dtype not in _ATTN_DTYPES:
-        raise ValueError(f"flash_attention_fwd: dtype {q.dtype}; expected "
-                         "float32 or bfloat16")
-    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"flash_attention_fwd: shapes {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}; expected "
-                         "three equal [B, L, H, D]")
+        raise ValueError(f"{name}: dtype {q.dtype}; expected float32 or "
+                         "bfloat16")
+    if q.dim() != 4 or any(t.shape != q.shape for t in qlike.values()):
+        raise ValueError(f"{name}: shapes "
+                         f"{[tuple(t.shape) for t in qlike.values()]}; "
+                         f"expected {len(qlike)} equal [B, L, H, D]")
     B, L, H, D = q.shape
     if not (0 < B <= 65535 and 0 < H <= 65535 and L > 0
             and D % 8 == 0 and 8 <= D <= 128):
-        raise ValueError(f"flash_attention_fwd: shape {tuple(q.shape)}; the "
-                         "kernel takes B, H in [1, 65535], L >= 1 and a head "
-                         "dim that is a multiple of 8 up to 128")
+        raise ValueError(f"{name}: shape {tuple(q.shape)}; the kernel takes "
+                         "B, H in [1, 65535], L >= 1 and a head dim that is "
+                         "a multiple of 8 up to 128")
+    if rows and -(-L // 64) > _ATTN_MAX_TILES:
+        raise ValueError(f"{name}: L {L} is more than {_ATTN_MAX_TILES} "
+                         "tiles of 64")
+    for key, t in rows.items():
+        if t.dtype != torch.float32 or tuple(t.shape) != (B, H, L):
+            raise ValueError(f"{name}: {key} is {t.dtype} "
+                             f"{tuple(t.shape)}; expected float32 [B, H, L]"
+                             f" = {(B, H, L)}")
     dev = q.device
     if dev.type != "cuda":
-        raise ValueError(f"flash_attention_fwd: expected CUDA tensors, got "
-                         f"{dev}; the CPU runs blockwise_attention")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _check(name, t, q.dtype, 4, dev)
+        raise ValueError(f"{name}: expected CUDA tensors, got {dev}; the "
+                         "CPU runs the plain version (parallel/"
+                         "ring_attention.py)")
+    for key, t in qlike.items():
+        _check(key, t, q.dtype, 4, dev)
+    for key, t in rows.items():
+        _check(key, t, torch.float32, 3, dev)
+    return B, L, H, D
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool,
+                        lse: torch.Tensor | None = None) -> torch.Tensor:
+    """``softmax(q k^T / sqrt(D), causal mask) v`` for CUDA tensors
+    ``[B, L, H, D]`` of one type (f32 or bf16), contiguous and 16-byte
+    aligned, with ``L >= 1`` and a head dim ``D`` that is a multiple of 8
+    up to 128. Returns a new ``[B, L, H, D]`` tensor of ``q.dtype``. Given
+    ``lse``, a ``[B, H, L]`` f32 CUDA buffer, the kernel also writes each
+    row's logsumexp of its scaled scores there (the backward's residual).
+    Anything else raises."""
+    B, L, H, D = _attn_args("flash_attention_fwd", {"q": q, "k": k, "v": v},
+                            {} if lse is None else {"lse": lse})
     lib = build()
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.pio_flash_attn_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, L, H, D,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), B, L, H, D,
         _ATTN_DTYPES[q.dtype], int(causal), 1.0 / (D**0.5), stream)
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError "
                            f"{err}")
     _count("flash_attention")
     return out
+
+
+def _bwd_args(name, q, k, v, do, lse, di):
+    return _attn_args(name, {"q": q, "k": k, "v": v, "do": do},
+                      {"lse": lse, "di": di})
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, di, *, causal: bool):
+    """``(dk, dv)`` of ``flash_attention_fwd`` for the output gradient
+    ``do``: q, k, v, do CUDA ``[B, L, H, D]`` of one type, ``lse`` the
+    forward's logsumexp and ``di = rowsum(do * o)``, both ``[B, H, L]``
+    f32; the same shape rules as the forward. Returns two new ``[B, L, H,
+    D]`` tensors of ``q.dtype``. Anything else raises."""
+    B, L, H, D = _bwd_args("flash_attention_bwd_dkv", q, k, v, do, lse, di)
+    lib = build()
+    dk, dv = torch.empty_like(q), torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.pio_flash_attn_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, L, H,
+        D, _ATTN_DTYPES[q.dtype], int(causal), 1.0 / (D**0.5), stream)
+    if err:
+        raise RuntimeError(f"flash_attention_bwd_dkv kernel launch failed: "
+                           f"cudaError {err}")
+    _count("flash_attention_bwd_dkv")
+    return dk, dv
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, di, *, causal: bool):
+    """``dq`` of ``flash_attention_fwd`` from the same inputs as
+    ``flash_attention_bwd_dkv``. Returns a new ``[B, L, H, D]`` tensor of
+    ``q.dtype``. Anything else raises."""
+    B, L, H, D = _bwd_args("flash_attention_bwd_dq", q, k, v, do, lse, di)
+    lib = build()
+    dq = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.pio_flash_attn_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), di.data_ptr(), dq.data_ptr(), B, L, H, D,
+        _ATTN_DTYPES[q.dtype], int(causal), 1.0 / (D**0.5), stream)
+    if err:
+        raise RuntimeError(f"flash_attention_bwd_dq kernel launch failed: "
+                           f"cudaError {err}")
+    _count("flash_attention_bwd_dq")
+    return dq

@@ -1,11 +1,14 @@
-"""Sequential recommendation engine template — serving on the port.
+"""Sequential recommendation engine template on the port.
 
-The port of ``templates/seqrec/engine.py``'s serving half: the algorithm
-parameters, the query and result types, ``SeqRecAlgorithm.predict`` and
-``batch_predict``, and the engine factory. A causal-attention model
-(``models/seq_attention.py``) predicts each user's next item through the
-hand-written flash-attention kernel. ``SeqRecAlgorithm.train`` comes with
-the seqrec training slice; until then a model reaches the template through
+The port of ``templates/seqrec/engine.py``: the algorithm parameters, the
+query and result types, ``TrainingData``, ``SeqPreparator``,
+``SeqRecAlgorithm`` (``train`` builds each user's time-ordered history and
+trains the causal-attention model of ``models/seq_attention.py`` on the
+context's device; ``predict`` and ``batch_predict`` serve it through the
+hand-written flash-attention kernel) and the engine factory. The data
+source reads the event store, which comes with the storage slice: until
+then a caller registers a ``DataSource`` of its own that returns
+``TrainingData`` (``engine.data_source_classes``), or builds a model with
 ``convert.seqrec_model_from_numpy``.
 
 Query:  {"user": "u1", "num": 4}
@@ -16,8 +19,10 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-from ...controller import Algorithm, Engine, FirstServing, Params
-from ...models.seq_attention import SeqRecModel
+from ...controller import (Algorithm, Engine, FirstServing, Params,
+                           Preparator, SanityCheck)
+from ...models.seq_attention import (SeqRecConfig, SeqRecModel,
+                                     build_sequences, train_seq_rec)
 
 
 @dataclass(frozen=True)
@@ -50,14 +55,41 @@ class PredictedResult:
     itemScores: tuple = ()
 
 
+class TrainingData(SanityCheck):
+    """Interaction events as parallel arrays: user ids, item ids and event
+    times (float epoch seconds)."""
+
+    def __init__(self, users, items, times):
+        self.users = users
+        self.items = items
+        self.times = times
+
+    def sanity_check(self) -> None:
+        if len(self.users) == 0:
+            raise ValueError("No interaction events found; import data first.")
+
+
+class SeqPreparator(Preparator):
+    def prepare(self, ctx, td: TrainingData) -> TrainingData:
+        return td
+
+
 class SeqRecAlgorithm(Algorithm):
     params_class = AlgorithmParams
     query_class = Query
 
-    def train(self, ctx, td) -> SeqRecModel:
-        raise NotImplementedError(
-            "seqrec training is not ported yet; build the model with "
-            "predictionio_tpu_torch.convert.seqrec_model_from_numpy")
+    def train(self, ctx, td: TrainingData) -> SeqRecModel:
+        p = self.params
+        cfg = SeqRecConfig(
+            max_len=p.max_len, embed_dim=p.embed_dim, num_heads=p.num_heads,
+            num_blocks=p.num_blocks, epochs=p.epochs, batch_size=p.batch_size,
+            lr=p.lr, seq_parallel=p.seq_parallel, seed=p.seed,
+        )
+        seqs, uids, iids = build_sequences(
+            td.users, td.items, td.times, max_len=cfg.max_len
+        )
+        return train_seq_rec(seqs, uids, iids, cfg,
+                             device=getattr(ctx, "device", None))
 
     def predict(self, model: SeqRecModel, query: Query) -> PredictedResult:
         recs = model.recommend_products(query.user, query.num)
@@ -78,11 +110,12 @@ class SeqRecAlgorithm(Algorithm):
 
 
 def engine_factory() -> Engine:
-    """The serving engine. Its data source and preparator read the event
-    store, which comes with the storage slice; the maps stay empty."""
+    """The seqrec engine. Its data source reads the event store, which comes
+    with the storage slice; until then the data-source map is empty and a
+    caller registers its own."""
     return Engine(
         data_source_classes={},
-        preparator_classes={},
+        preparator_classes=SeqPreparator,
         algorithm_classes={"seqrec": SeqRecAlgorithm},
         serving_classes=FirstServing,
     )

@@ -230,14 +230,6 @@ def test_serve_query_batch_matches_jax_template(models):
                      jm.recommend_products(user, num))
 
 
-def test_training_is_not_ported():
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tsa.train_seq_rec(np.zeros((1, 4), np.int32), None, None,
-                          tsa.SeqRecConfig())
-    with pytest.raises(NotImplementedError):
-        tengine.SeqRecAlgorithm(tengine.AlgorithmParams()).train(None, None)
-
-
 def test_convert_refuses_bad_inputs(models):
     jm, _net, _tm = models
     uinv, iinv = jm.user_ids.inverse, jm.item_ids.inverse

@@ -3,7 +3,8 @@ JAX package, and it never falls back to the CPU behind the caller's back.
 
 The import pin runs in a subprocess: this test process has jax loaded
 already (``tests/conftest.py`` imports it), so only a fresh interpreter can
-show what importing the port, and serving through it, pulls in.
+show what importing the port, serving through it and training through it
+pulls in.
 """
 
 import ast
@@ -67,8 +68,28 @@ with serve(sserver, "127.0.0.1", 0) as front:
         f"http://127.0.0.1:{front.port}/queries.json",
         data=b'{"user": "s2", "num": 3}', method="POST")
     sbody = json.loads(urllib.request.urlopen(req, timeout=30).read())
+from predictionio_tpu_torch.controller import DataSource, EngineParams
+from predictionio_tpu_torch.workflow.context import Context
+
+class Events(DataSource):
+    def read_training(self, ctx):
+        users = np.asarray([f"s{u}" for u in range(6) for _ in range(5)],
+                           dtype=object)
+        items = np.asarray([f"i{(u + t) % 7}" for u in range(6)
+                            for t in range(5)], dtype=object)
+        return seng.TrainingData(users, items,
+                                 np.tile(np.arange(5.0), 6))
+
+tengine = seng.engine_factory()
+tengine.data_source_classes = {"": Events}
+trained = tengine.train(Context(device="cpu"), EngineParams(
+    algorithm_params_list=(("seqrec", seng.AlgorithmParams(
+        max_len=6, embed_dim=16, num_heads=2, num_blocks=1, epochs=1,
+        batch_size=4)),)))
+trained_items = trained.models[0].recommend_products("s1", 2)
 print(json.dumps({
     "modules": len(names),
+    "trained_items": len(trained_items),
     "items": len(body["itemScores"]),
     "seq_items": len(sbody["itemScores"]),
     "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
@@ -91,6 +112,7 @@ def test_port_never_loads_jax_or_the_jax_package():
     assert out["modules"] >= 20
     assert out["items"] == 4
     assert out["seq_items"] == 3
+    assert out["trained_items"] == 2
     assert out["jax"] == []
     assert out["reference"] == []
 
@@ -177,6 +199,9 @@ _REPLACES = {
     "topk.cu": "predictionio_tpu/ops/retrieval.py::_topk_kernel",
     "flash_attn.cu": "jax/experimental/pallas/ops/tpu/flash_attention.py"
                      "::_flash_attention_kernel",
+    "flash_attn_bwd.cu": "jax/experimental/pallas/ops/tpu/flash_attention.py:"
+                         "\n// _flash_attention_dkv_kernel (dK, dV) and "
+                         "_flash_attention_dq_kernel (dQ)",
 }
 
 
@@ -192,6 +217,7 @@ def test_kernel_source_targets_hopper(name):
     path = PORT / "csrc" / name
     src = path.read_text()
     assert _REPLACES[name] in src
+    assert "sm_90a" in src  # written for Hopper, and says so
     assert "#include <torch" not in src  # plain C interface: seconds to build
     assert "#include <ATen" not in src and "#include <c10" not in src
     assert path in kernels.SOURCES  # built by the one load() call
