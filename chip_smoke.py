@@ -53,11 +53,15 @@ no card is visible). It imports nothing of JAX or of ``predictionio_tpu``.
    ``flash_attention_bwd_dkv`` and ``flash_attention_bwd_dq``) and the
    forward that writes the logsumexp against ``blockwise_attention_bwd`` /
    ``blockwise_attention`` at the phase-4 shapes (B8 L4096 H8 D64 causal
-   f32 is also the training shape below) and the template training shapes
-   (head dims 24 and 16): each gradient within 1e-4 (f32) or 2**-6 (bf16)
-   of its largest magnitude, the logsumexp within 1e-5, the output within
-   phase 4's tolerance and bitwise equal to the serving forward's (which
-   writes no logsumexp); median device times
+   f32 is also the training shape below), the template training shapes
+   (head dims 24 and 16) and the kernels' tile edges (L 129 and 200 at
+   D 40, L 257 at D 120, L 1 at D 8; f32 and bf16): each gradient within
+   1e-4 (f32) or 2**-6 (bf16) of its largest magnitude (at L 1, where dq
+   and dk are zero up to rounding, of dv's), the logsumexp within 1e-5, the
+   output within phase 4's tolerance and bitwise equal to the serving
+   forward's (which writes no logsumexp); at the training shape and at B4
+   L4096 bf16 each kernel runs twice and its gradients must be bitwise
+   equal (no atomics, a fixed summation order); median device times
    of each kernel, the plain backward (in batch chunks) and, as a yardstick
    the port never calls, the backward of ``scaled_dot_product_attention``.
    (b) Full-width training steps: the phase-5 model (embed 512, 8 heads, 2
@@ -841,15 +845,28 @@ def phase_seq_template(dev, *, n_users=1000, n_items=N_ITEMS) -> dict:
 
 #: the phase-4 shapes (B8 L4096 H8 D64 causal f32 is also the training
 #: shape of phase 6b), plus the template's training shapes: max_len 64 at
-#: head dim 24 (L 63) and the cyclic fixture's max_len 12 at head dim 16
+#: head dim 24 (L 63) and the cyclic fixture's max_len 12 at head dim 16;
+#: then the kernels' tile edges in both types: L 129 and 200 cross a 128-
+#: and a 64-row tile boundary, D 40 and 120 are no multiple of the bf16
+#: k-step 16, L 1 is a lone row
 BWD_CASES = ATTN_CASES + [
     ("template train B32 L63 H2 D24 causal f32", 32, 63, 2, 24, "float32",
      True),
     ("template train B32 L63 H2 D24 causal bf16", 32, 63, 2, 24, "bfloat16",
      True),
     ("cycle train B32 L11 H2 D16 causal f32", 32, 11, 2, 16, "float32", True),
+] + [
+    (f"edge B{B} L{L} H2 D{D} {'causal' if causal else 'full'} {tag}", B, L,
+     2, D, dtype, causal)
+    for B, L, D, causal in ((2, 129, 40, True), (2, 129, 40, False),
+                            (2, 200, 40, True), (2, 200, 40, False),
+                            (2, 257, 120, True), (3, 1, 8, True))
+    for tag, dtype in (("f32", "float32"), ("bf16", "bfloat16"))
 ]
 TRAIN_CASE = SERVING_CASE
+#: cases whose gradients are computed twice and held bitwise equal: the
+#: kernels use no atomics and sum in a fixed order
+REPEAT_CASES = (TRAIN_CASE, "seqrec B4 L4096 H8 D64 causal bf16")
 #: plain backward: batch rows per chunk ([chunk, H, L, 1024] f32 blocks)
 BWD_PLAIN_CHUNK = 2
 
@@ -888,10 +905,12 @@ def bwd_bound_ms(B, L, H, D, dtype, causal, *, dkv: bool):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def rel_err(got, want) -> float:
-    """Max |got - want| over the largest |want|."""
+def rel_err(got, want, scale=None) -> float:
+    """Max |got - want| over the largest |want| (or over ``scale``)."""
+    if scale is None:
+        scale = want.float().abs().max()
     return float((got.float() - want.float()).abs().max()
-                 / want.float().abs().max().clamp(min=1e-30))
+                 / torch.as_tensor(scale).clamp(min=1e-30))
 
 
 def bwd_case(dev, name, B, L, H, D, dtype, causal, *, timing):
@@ -927,16 +946,31 @@ def bwd_case(dev, name, B, L, H, D, dtype, causal, *, timing):
     rec = {"case": name, "shape": [B, L, H, D], "dtype": dtype,
            "causal": causal, "o_max_abs_err": o_err,
            "lse_max_abs_err": lse_err, "tol": tol}
-    for key, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+    # with one key per row (L 1) the softmax has no gradient: dq and dk are
+    # zero up to rounding on both sides, so they are held against dv's
+    # largest magnitude (the output gradient flowing in), not their own
+    scales = [None, None, None] if L > 1 else [want[2].float().abs().max()] * 3
+    for key, got, w, scale in zip(("dq", "dk", "dv"), (dq, dk, dv), want,
+                                  scales):
         check(got.dtype == dt and got.shape == q.shape
               and bool(torch.isfinite(got).all()),
               f"{name}: {key} {got.dtype} {tuple(got.shape)} or not finite")
         rec[f"{key}_max_abs_err"] = float((got.float() - w.float()).abs().max())
-        rec[f"{key}_rel_err"] = rel_err(got, w)
+        rec[f"{key}_rel_err"] = rel_err(got, w, scale)
         check(rec[f"{key}_rel_err"] <= tol,
               f"{name}: {key} disagrees with blockwise_attention_bwd "
               f"({rec[f'{key}_rel_err']:.3g} of its largest magnitude, "
               f"tolerance {tol:.3g})")
+    if name in REPEAT_CASES:
+        again = (kernels.flash_attention_bwd_dq(q, k, v, do, lse, di,
+                                                causal=causal),
+                 *kernels.flash_attention_bwd_dkv(q, k, v, do, lse, di,
+                                                  causal=causal))
+        for key, got, rerun in zip(("dq", "dk", "dv"), (dq, dk, dv), again):
+            check(torch.equal(got, rerun),
+                  f"{name}: {key} differs between two runs of its kernel")
+        rec["repeat_bitwise"] = True
+        del again
     del dq, dk, dv, want
     if timing:
         iters, reps = (2, 3) if B * L * L * H >= 1 << 34 else (10, 5)

@@ -13,6 +13,11 @@
 - ``csrc/flash_attn_bwd.cu`` replaces the same file's two backward kernels
   (``_flash_attention_dkv_kernel``, ``_flash_attention_dq_kernel``).
   Entry points ``flash_attention_bwd_dkv`` and ``flash_attention_bwd_dq``.
+  One CTA per output tile, no atomics, so the gradients are the same bits
+  from run to run; the streamed Q/dO (or K/V) tiles go through a two-stage
+  ``cp.async`` ring. f32 runs SIMT register tiles on CUDA-core FFMAs (no
+  TF32); bf16 runs all five products on the tensor cores (``mma.sync``
+  m16n8k16 fed by ``ldmatrix``), P and dS rounded to bf16 in registers.
 
 The attention entry points take CUDA tensors only; the CPU dispatch to the
 plain versions (``blockwise_attention``, ``blockwise_attention_bwd``) lives

@@ -138,7 +138,10 @@ def blockwise_attention_bwd(q, k, v, o, lse, do, *, causal: bool = False,
     dP = dO V^T, dS = ((dP - di) * P) * scale, dK = dS^T Q, dQ += dS K.
     Products of ``mm_dtype`` values summed in f32; for bf16 inputs P and dS
     are rounded to bf16 before the products they feed (dS from the
-    unrounded P), as the kernels do. Returns q.dtype tensors."""
+    unrounded P), as the kernels do. The kernels form P as ``exp2`` of
+    (S * scale - lse) * log2(e) and sum in another order, so their f32
+    gradients differ from these in the last bits. Returns q.dtype
+    tensors."""
     B, L, H, D = q.shape
     f32 = torch.float32
     scale = 1.0 / (D**0.5)

@@ -24,6 +24,12 @@ The logsumexp the forward returns is held to JAX's ``m + log(l)`` from
 kernel's own reference, with q pre-scaled by 1/sqrt(D) (its scale is 1),
 within 1e-5.
 
+``EDGE_SHAPES`` are the backward kernels' tile edges (rows crossing a 64-
+and a 128-row tile, head dims that are no multiple of 16, a lone row): the
+card holds the kernels against ``blockwise_attention_bwd`` there, and
+``test_gradients_match_jax_vjp_at_kernel_tile_edges`` anchors that plain
+version to JAX at the same shapes.
+
 The kernels run only on a card: ``test_backward_kernels_match_plain_on_the_card``
 carries the ``cuda`` marker and skips here; ``chip_smoke.py`` holds them
 against ``blockwise_attention_bwd`` on the card.
@@ -64,10 +70,35 @@ def _close(got, want, tol, what):
     assert err <= tol * scale, (what, err, scale)
 
 
+#: the backward kernels' tile edges (B, L, H, D, plain block size): L 129
+#: and 200 cross a 128- and a 64-row tile boundary, D 40 and 120 are no
+#: multiple of the bf16 k-step 16 (zero-padded on the card), L 1 is a lone
+#: row; chip_smoke.py holds the kernels against the plain version there
+EDGE_SHAPES = [
+    (2, 129, 2, 40, 64),
+    (2, 200, 2, 40, 64),
+    (2, 257, 2, 120, 64),
+    (3, 1, 2, 8, 64),
+]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("shape", SHAPES, ids=_ids)
 def test_gradients_match_jax_vjp(shape, causal, dtype):
+    _check_routes(shape, causal, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", EDGE_SHAPES, ids=_ids)
+def test_gradients_match_jax_vjp_at_kernel_tile_edges(shape, causal, dtype):
+    _check_routes(shape, causal, dtype)
+
+
+def _check_routes(shape, causal, dtype):
+    """``jax.vjp`` of the JAX ``flash_attention`` against the port's three
+    routes, each gradient within ``GRAD_TOL`` of its largest magnitude."""
     B, L, H, D, bs = shape
     arrs = _arrays(sum(shape) + 7, B, L, H, D)
     jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
@@ -186,7 +217,7 @@ def cuda_device():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_backward_kernels_match_plain_on_the_card(cuda_device, dtype):
     tdt = getattr(torch, dtype)
-    for B, L, H, D, _bs in SHAPES:
+    for B, L, H, D, _bs in SHAPES + EDGE_SHAPES:
         arrs = _arrays(B + L + D, B, L, H, D)
         q, k, v, do = (torch.from_numpy(a).to(cuda_device, tdt) for a in arrs)
         for causal in (False, True):
