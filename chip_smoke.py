@@ -30,11 +30,15 @@ no card is visible). It imports nothing of JAX or of ``predictionio_tpu``.
    attention shapes (B4 L4096 H8 D64 causal, bf16 and f32; B1 L16384 H8
    D64 causal bf16), the serving shapes of phase 5 (B8 and B128, L4096 H8
    D64 causal f32), the shipped template's head dim (B8 L64 H2 D24), D128
-   L128, and an unaligned L25, causal and not. Max |err| within 1e-5 for
-   f32 (summation order) and 2**-7 for bf16 (two bf16 steps at |o| ~ 1);
-   median device times of the kernel, the plain version (run in batch
-   chunks so its [B, H, L, block] scores fit) and, as a yardstick the port
-   never calls, ``scaled_dot_product_attention``.
+   L128, D256 L2048, and an unaligned L25, causal and not; then three head
+   dims through the dispatch, each asserting from the launch count that the
+   kernel ran: D10 (B2 L200 H4, padded to 16), D136 (B2 L200 H2, padded to
+   256) and D256 (B2 L256 H2), f32 and bf16, causal. Max |err| within 1e-5
+   for f32 (summation order) and 2**-7 for
+   bf16 (two bf16 steps at |o| ~ 1); median device times of the kernel,
+   the plain version (run in batch chunks so its [B, H, L, block] scores
+   fit) and, as a yardstick the port never calls,
+   ``scaled_dot_product_attention``.
 5. SeqRec serving: the ML-20M catalog (26,744 items) under a seqrec model
    at embed 512, 8 heads (head dim 64), 2 blocks, max_len 4096, weights
    from a seeded generator at flax's init scales, and 20,000 users with
@@ -61,7 +65,11 @@ no card is visible). It imports nothing of JAX or of ``predictionio_tpu``.
    output within phase 4's tolerance and bitwise equal to the serving
    forward's (which writes no logsumexp); at the training shape and at B4
    L4096 bf16 each kernel runs twice and its gradients must be bitwise
-   equal (no atomics, a fixed summation order); median device times
+   equal (no atomics, a fixed summation order); and phase 4's D10, D136
+   and D256 fixtures through ``flash_attention`` under autograd, the launch
+   counts showing that all three kernels ran once, the output bitwise equal
+   to the serving forward's and held with the gradients against the plain
+   versions at the original D; median device times
    of each kernel, the plain backward (in batch chunks) and, as a yardstick
    the port never calls, the backward of ``scaled_dot_product_attention``.
    (b) Full-width training steps: the phase-5 model (embed 512, 8 heads, 2
@@ -581,10 +589,21 @@ ATTN_CASES = [
     ("template B8 L64 H2 D24 causal bf16", 8, 64, 2, 24, "bfloat16", True),
     ("D128 B4 L128 H8 causal f32", 4, 128, 8, 128, "float32", True),
     ("D128 B4 L128 H8 full f32", 4, 128, 8, 128, "float32", False),
+    ("D256 B2 L2048 H4 causal f32", 2, 2048, 4, 256, "float32", True),
+    ("D256 B2 L2048 H4 causal bf16", 2, 2048, 4, 256, "bfloat16", True),
     ("unaligned B2 L25 H2 D64 causal f32", 2, 25, 2, 64, "float32", True),
     ("unaligned B2 L25 H2 D64 full f32", 2, 25, 2, 64, "float32", False),
     ("unaligned B2 L25 H2 D64 causal bf16", 2, 25, 2, 64, "bfloat16", True),
     ("unaligned B2 L25 H2 D64 full bf16", 2, 25, 2, 64, "bfloat16", False),
+]
+#: head dims through the dispatch, which pads them for the kernels (D 10 to
+#: 16, D 136 to 256) or gives them as they are (D 256); phases 4 and 6a
+HEAD_DIM_CASES = [
+    (f"{case} causal {tag}", B, L, H, D, dtype, True)
+    for case, B, L, H, D in (("head dim D10 B2 L200 H4", 2, 200, 4, 10),
+                             ("head dim D136 B2 L200 H2", 2, 200, 2, 136),
+                             ("head dim D256 B2 L256 H2", 2, 256, 2, 256))
+    for tag, dtype in (("f32", "float32"), ("bf16", "bfloat16"))
 ]
 SERVING_CASE = "serving B8 L4096 H8 D64 causal f32"
 #: plain attention: batch rows per chunk, so [chunk, H, L, 1024] f32 scores
@@ -619,7 +638,14 @@ def attention_case(dev, name, B, L, H, D, dtype, causal, *, timing):
     gen = torch.Generator(device=dev).manual_seed(SEED + B * L + D)
     q, k, v = (torch.randn(B, L, H, D, generator=gen, device=dev)
                .mul_(0.5).to(dt) for _ in range(3))
+    launches0 = kernels.LAUNCHES["flash_attention"]
     out = flash_attention(q, k, v, causal=causal)
+    launches = kernels.LAUNCHES["flash_attention"] - launches0
+    # every head dim here reaches the kernel (padded where it must be); a
+    # CPU tensor runs the plain version and launches nothing
+    want_launches = int(dev.type == "cuda")
+    check(launches == want_launches,
+          f"{name}: {launches} kernel launches, want {want_launches}")
     ref = chunked_blockwise(q, k, v, causal=causal)
     check(out.dtype == dt and out.shape == q.shape,
           f"{name}: kernel output {out.dtype} {tuple(out.shape)}")
@@ -630,7 +656,8 @@ def attention_case(dev, name, B, L, H, D, dtype, causal, *, timing):
           f"{name}: kernel disagrees with blockwise_attention (max |err| "
           f"{err:.3g}, tolerance {tol:.3g})")
     rec = {"case": name, "shape": [B, L, H, D], "dtype": dtype,
-           "causal": causal, "max_abs_err": err, "tol": tol}
+           "causal": causal, "max_abs_err": err, "tol": tol,
+           "kernel_launches": launches}
     del out, ref
     if timing:
         iters, reps = (2, 3) if B * L * L * H >= 1 << 34 else (10, 5)
@@ -647,7 +674,8 @@ def attention_case(dev, name, B, L, H, D, dtype, causal, *, timing):
     return rec
 
 
-def phase_attention(dev, cases=ATTN_CASES, *, timing=True) -> list:
+def phase_attention(dev, cases=ATTN_CASES + HEAD_DIM_CASES, *,
+                    timing=True) -> list:
     recs = []
     for case in cases:
         recs.append(attention_case(dev, *case, timing=timing))
@@ -994,13 +1022,68 @@ def bwd_case(dev, name, B, L, H, D, dtype, causal, *, timing):
     return rec
 
 
-def phase_attention_bwd(dev, cases=BWD_CASES, *, timing=True) -> list:
+def head_dim_bwd_case(dev, name, B, L, H, D, dtype, causal) -> dict:
+    """A head dim through the dispatch the model trains with
+    (``flash_attention`` under autograd): the launch counts show the three
+    kernels ran once each (on the padded tensors at D 10 and 136); the
+    output with the logsumexp is bitwise equal to the serving forward's,
+    and held with the gradients against the plain versions at the original
+    D, as ``bwd_case`` holds the kernels."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7 * B * L + D)
+    q, k, v, do = (torch.randn(B, L, H, D, generator=gen, device=dev)
+                   .mul_(0.5).to(dt) for _ in range(4))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = dict(kernels.LAUNCHES)
+    o = flash_attention(*leaves, causal=causal)
+    grads = torch.autograd.grad(o, leaves, do)
+    moved = {key: kernels.LAUNCHES[key] - before[key] for key in before}
+    n = int(dev.type == "cuda")
+    want_moved = {"topk": 0, "topk_rows": 0, "flash_attention": n,
+                  "flash_attention_bwd_dkv": n, "flash_attention_bwd_dq": n}
+    check(moved == want_moved,
+          f"{name}: launches {moved}, want {want_moved}")
+    o = o.detach()
+    with torch.inference_mode():
+        served = flash_attention(q, k, v, causal=causal)
+    check(torch.equal(o, served), f"{name}: the training forward's output "
+          "differs from the serving forward's")
+    ref_o, ref_lse = chunked_blockwise_lse(q, k, v, causal=causal)
+    o_err, o_tol = float((o.float() - ref_o.float()).abs().max()), ATTN_TOL[dt]
+    check(o.dtype == dt and o.shape == q.shape
+          and bool(torch.allclose(o.float(), ref_o.float(), rtol=o_tol,
+                                  atol=o_tol)),
+          f"{name}: the training forward disagrees with blockwise_attention "
+          f"(max |err| {o_err:.3g}, tolerance {o_tol:.3g})")
+    want = chunked_bwd(q, k, v, ref_o, ref_lse, do, causal=causal)
+    tol = BWD_TOL[dt]
+    rec = {"case": name, "shape": [B, L, H, D], "dtype": dtype,
+           "causal": causal, "o_max_abs_err": o_err, "tol": tol,
+           "launches": moved, "serving_bitwise": True}
+    for key, got, w in zip(("dq", "dk", "dv"), grads, want):
+        check(got.dtype == dt and got.shape == q.shape
+              and bool(torch.isfinite(got).all()),
+              f"{name}: {key} {got.dtype} {tuple(got.shape)} or not finite")
+        rec[f"{key}_max_abs_err"] = float((got.float() - w.float()).abs().max())
+        rec[f"{key}_rel_err"] = rel_err(got, w)
+        check(rec[f"{key}_rel_err"] <= tol,
+              f"{name}: {key} disagrees with blockwise_attention_bwd "
+              f"({rec[f'{key}_rel_err']:.3g} of its largest magnitude, "
+              f"tolerance {tol:.3g})")
+    return rec
+
+
+def phase_attention_bwd(dev, cases=BWD_CASES, head_dim_cases=HEAD_DIM_CASES,
+                        *, timing=True) -> list:
     recs = []
     for case in cases:
         recs.append(bwd_case(dev, *case, timing=timing))
         print("[attention-bwd] " + json.dumps(recs[-1]), flush=True)
         if dev.type == "cuda":
             torch.cuda.empty_cache()
+    for case in head_dim_cases:
+        recs.append(head_dim_bwd_case(dev, *case))
+        print("[attention-bwd] " + json.dumps(recs[-1]), flush=True)
     return recs
 
 

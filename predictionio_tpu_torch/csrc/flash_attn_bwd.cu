@@ -43,7 +43,8 @@
 // axis). dS is not written out: the seqrec model passes no attention bias.
 //
 // Staging, both types. The streamed tile (Q and dO with their lse and di
-// rows for dK/dV; K and V for dQ), 64 rows (32 for bf16 at head dim 128),
+// rows for dK/dV; K and V for dQ), 64 rows (32 for bf16 at head dim 128; 16
+// at head dim 256),
 // goes through a two-stage ring in shared memory by 16-byte cp.async (4-byte
 // for lse and di), zero-filled past L and past D: tile t + 1 loads while
 // tile t computes, one __syncthreads a tile (two in f32, for the P and dS
@@ -52,9 +53,10 @@
 // per-element division: chunk indices are shifts.
 //
 // f32 (the main path; CUDA-core FFMA, no TF32). 256 threads; the own tile is
-// 128 rows at head dim <= 64 and 64 at 128 (registers), in 16 groups of 8
-// (4) contiguous rows; the streamed tile's 64 rows in 16 groups of 4
-// interleaved rows (r, r + 8, r + 16, r + 24), so the 8 lanes of a
+// 128 rows at head dim <= 64 and 64 at 128 and 256 (registers), in 16
+// groups of 8 (4) contiguous rows; the streamed tile's 64 rows in 16 groups
+// of 4 interleaved rows (r, r + 8, r + 16, r + 24; one row of 16 at head
+// dim 256), so the 8 lanes of a
 // quarter-warp read 8 neighbouring rows (distinct banks) and one broadcast
 // own row. Each thread holds an 8 x 4 block (4 x 4 at head dim 128) of S
 // and of dP, like a SIMT SGEMM:
@@ -82,7 +84,7 @@
 // bf16 (tensor cores). 128 threads, 4 warps; the own tile is 64 rows, 16 a
 // warp; mma.sync.m16n8k16 (bf16 in, f32 sums) for all five products, fed by
 // ldmatrix from bf16 tiles in shared memory, head dim zero-padded to 64 or
-// 128 (a multiple of the k-step 16):
+// 128, or 256 (a multiple of the k-step 16):
 // - dK/dV computes S^T = K Q^T and dP^T = V dO^T (K, V by ldmatrix as the
 //   A operand, Q, dO as B), so P^T and dS^T come out in the accumulator
 //   layout that m16n8k16 takes as its A operand; they are rounded to bf16
@@ -92,34 +94,27 @@
 // - dQ does the same with S = Q K^T, dP = dO V^T and dQ += dS K.
 // - Shared memory at head dim 64 / 128: dK/dV 55 / 68.5 KB, dQ 54 / 68 KB;
 //   the streamed tile is 32 rows at head dim 128 to hold registers.
+//
+// Head dim 256 (both types). A thread's share of dK and dV together (128
+// f32 in f32, 256 in bf16) does not fit its registers, so the dK/dV kernel
+// runs twice: once summing dV alone (S and P only), once dK alone (S, dP
+// and dS), each CTA holding one accumulator; about 1.25x the products of
+// one pass. dQ holds one accumulator anyway and runs once. The streamed
+// tile is 16 rows, so the f32 kernels fit shared memory (~210 KB).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include <type_traits>
+
+#include "attn_tiles.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
-constexpr int kTile = 64;        // own rows of a bf16 CTA; f32 streamed rows
+constexpr int kTile = 64;        // own rows of a bf16 CTA
 constexpr int kMaxTiles = 65535; // grid z limit (tiles of 64)
 
 // ---------------------------------------------------------------------------
 // staging
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from src, or 16 zero bytes when !ok (src is then not read)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                                           bool ok) {
@@ -127,37 +122,6 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                    smem_u32(dst)),
                "l"(src), "r"(ok ? 4 : 0)
                : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Row stride of a row-major tile: DP plus 16 bytes
-template <typename T, int DP>
-__host__ __device__ constexpr int row_stride() {
-  return DP + 16 / (int)sizeof(T);
-}
-
-// Stage rows [r0, r0 + ROWS) of x [B, L, H, D] (this CTA's batch and head,
-// `base` its first element, `rs` elements between positions) row-major into
-// s[r * row_stride + d] by cp.async, zeros past L and past D.
-template <typename T, int DP, int ROWS, int NT>
-__device__ __forceinline__ void stage_rows(T* s, const T* __restrict__ x,
-                                           long long base, long long rs,
-                                           int r0, int L, int D) {
-  constexpr int kE = 16 / (int)sizeof(T);  // elements per 16-byte chunk
-  constexpr int kChunks = DP / kE;         // chunks per row: a power of two
-  constexpr int kS = row_stride<T, DP>();
-  for (int idx = threadIdx.x; idx < ROWS * kChunks; idx += NT) {
-    const int r = idx / kChunks, c = (idx % kChunks) * kE, row = r0 + r;
-    const bool ok = row < L && c < D;
-    cp_async16(s + r * kS + c, ok ? x + base + row * rs + c : x, ok);
-  }
 }
 
 // Stage lse or di rows [r0, r0 + ROWS) by 4-byte cp.async, zeros past L.
@@ -184,33 +148,36 @@ struct F32Tile {
   static constexpr int SY = row_stride<float, DP>();  // row-major rows
   static constexpr int NF = DP / 16;              // features per thread
   static constexpr int BUFS = DP <= 64 ? 2 : 1;   // P and dS buffers
+  static constexpr int BS = DP <= 128 ? 64 : 16;  // streamed rows per step
+  static constexpr int NJ = BS / 16;              // streamed rows per thread
 };
 
 template <int DP>
 constexpr int f32_dkv_floats() {
   using G = F32Tile<DP>;
   // Kt, Vt; ring of 2 stages x (Q, dO); P / dS buffers; lse, di x 2 stages
-  return 2 * DP * G::SX + 4 * kTile * G::SY + G::BUFS * kTile * G::SX +
-         4 * kTile;
+  return 2 * DP * G::SX + 4 * G::BS * G::SY + G::BUFS * G::BS * G::SX +
+         4 * G::BS;
 }
 
 template <int DP>
 constexpr int f32_dq_floats() {
   using G = F32Tile<DP>;
   // Qt, dOt; ring of 2 stages x (K, V); the dS buffer
-  return 2 * DP * G::SX + 4 * kTile * G::SY + kTile * G::SX;
+  return 2 * DP * G::SX + 4 * G::BS * G::SY + G::BS * G::SX;
 }
 
-constexpr float kLog2e = 1.4426950408889634f;
+// At head dim 256 one thread cannot hold both dK and dV: the dK/dV kernel
+// runs twice, once for each (kOut 1 = dV, 2 = dK; 3 = both, below 256).
+template <int DP>
+constexpr bool split_dkv() {
+  return DP > 128;
+}
 
 // P = exp(s * scale - lse) as exp2(s * scale * log2(e) - lse * log2(e)):
 // scale2 = scale * log2(e), one FFMA and the SFU's exp2
 __device__ __forceinline__ float exp_lse(float s, float scale2, float lse) {
   return exp2f(fmaf(s, scale2, -lse * kLog2e));
-}
-
-__device__ __forceinline__ float lane4(const float4& v, int c) {
-  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
 }
 
 // Stage own rows [r0, r0 + BO) transposed into xt[d * SX + r] (once per
@@ -234,15 +201,15 @@ __device__ __forceinline__ void stage_t(float* xt, const float* __restrict__ x,
 // a[i][j] = sum_d xt[d][og * TO + i] * y[sr + 8 j][d]: the S / dP block of
 // own rows og * TO + i and streamed rows sr + 8 j, features in order.
 template <int DP>
-__device__ __forceinline__ void st_dot(float (&a)[F32Tile<DP>::TO][4],
-                                       const float* xt, const float* y,
-                                       int og, int sr) {
+__device__ __forceinline__ void st_dot(
+    float (&a)[F32Tile<DP>::TO][F32Tile<DP>::NJ], const float* xt,
+    const float* y, int og, int sr) {
   using G = F32Tile<DP>;
 #pragma unroll
   for (int d = 0; d < DP; d += 4) {
-    float4 yv[4];
+    float4 yv[G::NJ];
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < G::NJ; ++j)
       yv[j] = *reinterpret_cast<const float4*>(&y[(sr + 8 * j) * G::SY + d]);
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
@@ -256,7 +223,7 @@ __device__ __forceinline__ void st_dot(float (&a)[F32Tile<DP>::TO][4],
 #pragma unroll
       for (int i = 0; i < G::TO; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+        for (int j = 0; j < G::NJ; ++j)
           a[i][j] = fmaf(xv[i], lane4(yv[j], c), a[i][j]);
     }
   }
@@ -265,12 +232,12 @@ __device__ __forceinline__ void st_dot(float (&a)[F32Tile<DP>::TO][4],
 // buf[(sr + 8 j) * SX + og * TO + i] = a[i][j]: a thread's block as 16-byte
 // rows of the [streamed][own] buffer
 template <int DP>
-__device__ __forceinline__ void put_block(float* buf,
-                                          const float (&a)[F32Tile<DP>::TO][4],
-                                          int og, int sr) {
+__device__ __forceinline__ void put_block(
+    float* buf, const float (&a)[F32Tile<DP>::TO][F32Tile<DP>::NJ], int og,
+    int sr) {
   using G = F32Tile<DP>;
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
+  for (int j = 0; j < G::NJ; ++j)
 #pragma unroll
     for (int i = 0; i < G::TO; i += 4)
       *reinterpret_cast<float4*>(&buf[(sr + 8 * j) * G::SX + og * G::TO + i]) =
@@ -278,7 +245,7 @@ __device__ __forceinline__ void put_block(float* buf,
 }
 
 // acc[i][4 c + e] += sum_r buf[r][og * TO + i] * y[r][4 fg + 64 c + e] over
-// the 64 streamed rows in order: dV += P^T dO, dK += dS^T Q or dQ += dS K.
+// the BS streamed rows in order: dV += P^T dO, dK += dS^T Q or dQ += dS K.
 template <int DP>
 __device__ __forceinline__ void buf_dot(float (&acc)[F32Tile<DP>::TO][DP / 16],
                                         const float* buf, const float* y,
@@ -286,7 +253,7 @@ __device__ __forceinline__ void buf_dot(float (&acc)[F32Tile<DP>::TO][DP / 16],
   using G = F32Tile<DP>;
   constexpr int NC = DP / 64;
 #pragma unroll 8
-  for (int r = 0; r < kTile; ++r) {
+  for (int r = 0; r < G::BS; ++r) {
     float xv[G::TO];
 #pragma unroll
     for (int i = 0; i < G::TO; i += 4) {
@@ -330,19 +297,21 @@ __device__ __forceinline__ void write_f32(
 }
 
 // Thread roles of the f32 kernels: own group og (rows og * TO + i), first
-// streamed row sr (rows sr + 8 j), feature group fg (features 4 fg + 64 c).
-// Lanes 0-7 of a quarter-warp share og and take neighbouring sr / fg.
+// streamed row sr (rows sr + 8 j of BS), feature group fg (features
+// 4 fg + 64 c). Lanes 0-7 of a quarter-warp share og and take neighbouring
+// sr / fg.
+template <int BS>
 struct F32Roles {
   int og, sr, fg;
   __device__ F32Roles() {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     og = (warp & 3) * 4 + (lane >> 3);
-    sr = (warp >> 2) * 32 + (lane & 7);
+    sr = (warp >> 2) * (BS / 2) + (lane & 7);
     fg = (warp >> 2) * 8 + (lane & 7);
   }
 };
 
-template <int DP, bool kCausal>
+template <int DP, bool kCausal, int kOut>
 __global__ void __launch_bounds__(kF32Threads, 1)
 bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
             const float* __restrict__ v, const float* __restrict__ dout,
@@ -350,13 +319,15 @@ bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
             float* __restrict__ dk, float* __restrict__ dv, int L, int H,
             int D, float scale) {
   using G = F32Tile<DP>;
+  constexpr int BS = G::BS, NJ = G::NJ;
+  constexpr bool kDV = kOut & 1, kDK = kOut & 2;
   extern __shared__ __align__(16) float smem[];
   float* Kt = smem;                          // Kt[d * SX + key]
   float* Vt = Kt + DP * G::SX;
   float* ring = Vt + DP * G::SX;             // [stage][Q, dO][query][SY]
-  float* bufs = ring + 4 * kTile * G::SY;    // [P, dS][query][SX]
-  float* rows = bufs + G::BUFS * kTile * G::SX;  // [stage][lse, di][query]
-  const F32Roles t;
+  float* bufs = ring + 4 * BS * G::SY;       // [P, dS][query][SX]
+  float* rows = bufs + G::BUFS * BS * G::SX; // [stage][lse, di][query]
+  const F32Roles<BS> t;
   const float scale2 = scale * kLog2e;
 
   const int h = blockIdx.x, b = blockIdx.y, k0 = blockIdx.z * G::BO;
@@ -365,13 +336,12 @@ bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
   const long long rbase = ((long long)b * H + h) * L;  // lse, di rows
 
   auto prefetch = [&](int q0, int st) {
-    float* Qs = ring + 2 * st * kTile * G::SY;
-    stage_rows<float, DP, kTile, kF32Threads>(Qs, q, base, rs, q0, L, D);
-    stage_rows<float, DP, kTile, kF32Threads>(Qs + kTile * G::SY, dout, base,
-                                              rs, q0, L, D);
-    stage_vec<kTile, kF32Threads>(rows + 2 * st * kTile, lse, rbase, q0, L);
-    stage_vec<kTile, kF32Threads>(rows + (2 * st + 1) * kTile, di, rbase, q0,
-                                  L);
+    float* Qs = ring + 2 * st * BS * G::SY;
+    stage_rows<float, DP, BS, kF32Threads>(Qs, q, base, rs, q0, L, D);
+    stage_rows<float, DP, BS, kF32Threads>(Qs + BS * G::SY, dout, base, rs,
+                                           q0, L, D);
+    stage_vec<BS, kF32Threads>(rows + 2 * st * BS, lse, rbase, q0, L);
+    stage_vec<BS, kF32Threads>(rows + (2 * st + 1) * BS, di, rbase, q0, L);
     cp_async_commit();
   };
   // under the causal mask no query before k0 sees this key tile
@@ -387,31 +357,31 @@ bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < G::NF; ++c) adk[i][c] = adv[i][c] = 0.f;
 
   int st = 0;
-  for (int q0 = q_begin; q0 < L; q0 += kTile, st ^= 1) {
+  for (int q0 = q_begin; q0 < L; q0 += BS, st ^= 1) {
     cp_async_wait_all();
     __syncthreads();  // this tile landed; the other stage and buffers are free
-    if (q0 + kTile < L) prefetch(q0 + kTile, st ^ 1);
-    const float* Qs = ring + 2 * st * kTile * G::SY;
-    const float* dOs = Qs + kTile * G::SY;
-    const float* lse_s = rows + 2 * st * kTile;
-    const float* di_s = lse_s + kTile;
+    if (q0 + BS < L) prefetch(q0 + BS, st ^ 1);
+    const float* Qs = ring + 2 * st * BS * G::SY;
+    const float* dOs = Qs + BS * G::SY;
+    const float* lse_s = rows + 2 * st * BS;
+    const float* di_s = lse_s + BS;
 
     // s[i][j], dp[i][j]: key k0 + og * TO + i, query q0 + sr + 8 j
-    float s[G::TO][4], dp[G::TO][4];
+    float s[G::TO][NJ], dp[G::TO][NJ];
 #pragma unroll
     for (int i = 0; i < G::TO; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+      for (int j = 0; j < NJ; ++j) s[i][j] = dp[i][j] = 0.f;
     st_dot<DP>(s, Kt, Qs, t.og, t.sr);   // S^T = K Q^T
-    st_dot<DP>(dp, Vt, dOs, t.og, t.sr); // dP^T = V dO^T
+    if constexpr (kDK) st_dot<DP>(dp, Vt, dOs, t.og, t.sr);  // dP^T = V dO^T
     // every pair of the tile visible: no mask
-    const bool inner = q0 + kTile <= L && k0 + G::BO <= L &&
+    const bool inner = q0 + BS <= L && k0 + G::BO <= L &&
                        (!kCausal || k0 + G::BO - 1 <= q0);
 #pragma unroll
     for (int i = 0; i < G::TO; ++i) {
       const int key = k0 + t.og * G::TO + i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < NJ; ++j) {
         const int r = t.sr + 8 * j, row = q0 + r;
         const bool ok =
             inner || (row < L && key < L && (!kCausal || key <= row));
@@ -420,21 +390,25 @@ bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
         dp[i][j] = (dp[i][j] - di_s[r]) * pf * scale;
       }
     }
-    put_block<DP>(bufs, s, t.og, t.sr);
-    if constexpr (G::BUFS == 2)
-      put_block<DP>(bufs + kTile * G::SX, dp, t.og, t.sr);
+    // P in bufs, dS in the second buffer (in bufs when it is the only one
+    // and dV is not summed here)
+    float* ds_buf = bufs + (kDV ? G::BUFS - 1 : 0) * BS * G::SX;
+    if constexpr (kDV) put_block<DP>(bufs, s, t.og, t.sr);
+    if constexpr (kDK && (G::BUFS == 2 || !kDV))
+      put_block<DP>(ds_buf, dp, t.og, t.sr);
     __syncthreads();
-    buf_dot<DP>(adv, bufs, dOs, t.og, t.fg);  // dV += P^T dO
-    if constexpr (G::BUFS == 1) {
-      __syncthreads();
-      put_block<DP>(bufs, dp, t.og, t.sr);
-      __syncthreads();
+    if constexpr (kDV) buf_dot<DP>(adv, bufs, dOs, t.og, t.fg);  // dV += P^T dO
+    if constexpr (kDK) {
+      if constexpr (G::BUFS == 1 && kDV) {
+        __syncthreads();
+        put_block<DP>(bufs, dp, t.og, t.sr);
+        __syncthreads();
+      }
+      buf_dot<DP>(adk, ds_buf, Qs, t.og, t.fg);  // dK += dS^T Q
     }
-    buf_dot<DP>(adk, bufs + (G::BUFS - 1) * kTile * G::SX, Qs, t.og,
-                t.fg);  // dK += dS^T Q
   }
-  write_f32<DP>(dk, adk, base, rs, k0, L, D, t.og, t.fg);
-  write_f32<DP>(dv, adv, base, rs, k0, L, D, t.og, t.fg);
+  if constexpr (kDK) write_f32<DP>(dk, adk, base, rs, k0, L, D, t.og, t.fg);
+  if constexpr (kDV) write_f32<DP>(dv, adv, base, rs, k0, L, D, t.og, t.fg);
 }
 
 template <int DP, bool kCausal>
@@ -444,12 +418,13 @@ bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ lse, const float* __restrict__ di,
            float* __restrict__ dq, int L, int H, int D, float scale) {
   using G = F32Tile<DP>;
+  constexpr int BS = G::BS, NJ = G::NJ;
   extern __shared__ __align__(16) float smem[];
   float* Qt = smem;                          // Qt[d * SX + query]
   float* dOt = Qt + DP * G::SX;
   float* ring = dOt + DP * G::SX;            // [stage][K, V][key][SY]
-  float* buf = ring + 4 * kTile * G::SY;     // dS [key][SX]
-  const F32Roles t;
+  float* buf = ring + 4 * BS * G::SY;        // dS [key][SX]
+  const F32Roles<BS> t;
   const float scale2 = scale * kLog2e;
 
   const int h = blockIdx.x, b = blockIdx.y;
@@ -460,10 +435,10 @@ bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int kv_end = kCausal ? min(L, q0 + G::BO) : L;
 
   auto prefetch = [&](int k0, int st) {
-    float* Ks = ring + 2 * st * kTile * G::SY;
-    stage_rows<float, DP, kTile, kF32Threads>(Ks, k, base, rs, k0, L, D);
-    stage_rows<float, DP, kTile, kF32Threads>(Ks + kTile * G::SY, v, base, rs,
-                                              k0, L, D);
+    float* Ks = ring + 2 * st * BS * G::SY;
+    stage_rows<float, DP, BS, kF32Threads>(Ks, k, base, rs, k0, L, D);
+    stage_rows<float, DP, BS, kF32Threads>(Ks + BS * G::SY, v, base, rs, k0,
+                                           L, D);
     cp_async_commit();
   };
   prefetch(0, 0);
@@ -484,28 +459,28 @@ bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < G::NF; ++c) acc[i][c] = 0.f;
 
   int st = 0;
-  for (int k0 = 0; k0 < kv_end; k0 += kTile, st ^= 1) {
+  for (int k0 = 0; k0 < kv_end; k0 += BS, st ^= 1) {
     cp_async_wait_all();
     __syncthreads();  // this tile landed; the other stage and dS are free
-    if (k0 + kTile < kv_end) prefetch(k0 + kTile, st ^ 1);
-    const float* Ks = ring + 2 * st * kTile * G::SY;
-    const float* Vs = Ks + kTile * G::SY;
+    if (k0 + BS < kv_end) prefetch(k0 + BS, st ^ 1);
+    const float* Ks = ring + 2 * st * BS * G::SY;
+    const float* Vs = Ks + BS * G::SY;
 
     // s[i][j], dp[i][j]: query q0 + og * TO + i, key k0 + sr + 8 j
-    float s[G::TO][4], dp[G::TO][4];
+    float s[G::TO][NJ], dp[G::TO][NJ];
 #pragma unroll
     for (int i = 0; i < G::TO; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+      for (int j = 0; j < NJ; ++j) s[i][j] = dp[i][j] = 0.f;
     st_dot<DP>(s, Qt, Ks, t.og, t.sr);    // S = Q K^T
     st_dot<DP>(dp, dOt, Vs, t.og, t.sr);  // dP = dO V^T
-    const bool inner = q0 + G::BO <= L && k0 + kTile <= L &&
-                       (!kCausal || k0 + kTile - 1 <= q0);
+    const bool inner = q0 + G::BO <= L && k0 + BS <= L &&
+                       (!kCausal || k0 + BS - 1 <= q0);
 #pragma unroll
     for (int i = 0; i < G::TO; ++i) {
       const int row = q0 + t.og * G::TO + i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < NJ; ++j) {
         const int col = k0 + t.sr + 8 * j;
         const bool ok =
             inner || (row < L && col < L && (!kCausal || col <= row));
@@ -527,7 +502,8 @@ constexpr int kBf16Threads = 128;
 
 template <int DP>
 struct Bf16Tile {
-  static constexpr int BS = DP <= 64 ? 64 : 32;  // streamed rows per step
+  // streamed rows per step
+  static constexpr int BS = DP <= 64 ? 64 : DP <= 128 ? 32 : 16;
   static constexpr int SB = row_stride<bf16, DP>();  // row-major rows
 };
 
@@ -542,60 +518,6 @@ template <int DP>
 constexpr int bf16_dq_bytes() {
   using G = Bf16Tile<DP>;
   return (2 * kTile + 4 * G::BS) * G::SB * 2;  // Q, dO; ring of (K, V)
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// c += a b for one 16 x 8 tile: a 16 x 16 (row), b 16 x 8 (col), f32 sums
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two f32 rounded to bf16 (nearest even), lo in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// ldmatrix.x4 addresses of lane l (matrix m = l / 8, row l % 8) in a
-// row-major tile x of stride S:
-// - the A operand: rows r0..r0+15, k columns c0..c0+15;
-__device__ __forceinline__ const bf16* a_frag(const bf16* x, int S, int r0,
-                                              int c0) {
-  const int l = threadIdx.x & 31, m = l >> 3;
-  return x + (r0 + (m & 1) * 8 + (l & 7)) * S + c0 + (m >> 1) * 8;
-}
-// - the B operands of two n-tiles whose n index is the row (n0..n0+15), k
-//   the column (c0..c0+15): regs {0, 1} n-tile n0, {2, 3} n-tile n0 + 8;
-__device__ __forceinline__ const bf16* b_frag(const bf16* x, int S, int n0,
-                                              int c0) {
-  const int l = threadIdx.x & 31, m = l >> 3;
-  return x + (n0 + (m >> 1) * 8 + (l & 7)) * S + c0 + (m & 1) * 8;
-}
-// - with .trans, the B operands of two n-tiles whose k index is the row
-//   (k0..k0+15), n the column (n0..n0+15): the same register order.
-__device__ __forceinline__ const bf16* bt_frag(const bf16* x, int S, int k0,
-                                               int n0) {
-  const int l = threadIdx.x & 31, m = l >> 3;
-  return x + (k0 + (m & 1) * 8 + (l & 7)) * S + n0 + (m >> 1) * 8;
 }
 
 // acc[n] (16 x 8 tiles over the warp's rows r0..r0+15 and the streamed
@@ -640,28 +562,7 @@ __device__ __forceinline__ void mma_feats(float (&acc)[DP / 8][4],
   }
 }
 
-// rows r0 + g and r0 + g + 8 of a warp's [16 x DP] accumulator to out
-template <int DP>
-__device__ __forceinline__ void write_bf16(bf16* __restrict__ out,
-                                           const float (&acc)[DP / 8][4],
-                                           long long base, long long rs,
-                                           int r0, int L, int D) {
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = r0 + g + 8 * half;
-    if (row >= L) continue;
-#pragma unroll
-    for (int f = 0; f < DP / 8; ++f) {
-      const int col = 8 * f + 2 * t;
-      if (col < D)
-        *reinterpret_cast<__nv_bfloat162*>(&out[base + row * rs + col]) =
-            __floats2bfloat162_rn(acc[f][2 * half], acc[f][2 * half + 1]);
-    }
-  }
-}
-
-template <int DP, bool kCausal>
+template <int DP, bool kCausal, int kOut>
 __global__ void __launch_bounds__(kBf16Threads)
 bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
              const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -670,6 +571,7 @@ bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
              int D, float scale) {
   using G = Bf16Tile<DP>;
   constexpr int BS = G::BS, NS = BS / 8, NF = DP / 8;
+  constexpr bool kDV = kOut & 1, kDK = kOut & 2;
   extern __shared__ __align__(16) unsigned char smem_b[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_b);  // [key][SB]
   bf16* Vs = Ks + kTile * G::SB;
@@ -722,8 +624,8 @@ bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int n = 0; n < NS; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-    mma_rows<DP, NS>(s, Ks, Qs, kr);    // S^T = K Q^T
-    mma_rows<DP, NS>(dp, Vs, dOs, kr);  // dP^T = V dO^T
+    mma_rows<DP, NS>(s, Ks, Qs, kr);                     // S^T = K Q^T
+    if constexpr (kDK) mma_rows<DP, NS>(dp, Vs, dOs, kr);  // dP^T = V dO^T
     const bool inner = q0 + BS <= L && k0 + kTile <= L &&
                        (!kCausal || k0 + kTile - 1 <= q0);
     uint32_t pa[NS][2], da[NS][2];
@@ -744,11 +646,11 @@ bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
       da[n][0] = pack_bf16(dp[n][0], dp[n][1]);
       da[n][1] = pack_bf16(dp[n][2], dp[n][3]);
     }
-    mma_feats<DP, BS>(adv, pa, dOs);  // dV += P^T dO
-    mma_feats<DP, BS>(adk, da, Qs);   // dK += dS^T Q
+    if constexpr (kDV) mma_feats<DP, BS>(adv, pa, dOs);  // dV += P^T dO
+    if constexpr (kDK) mma_feats<DP, BS>(adk, da, Qs);   // dK += dS^T Q
   }
-  write_bf16<DP>(dk, adk, base, rs, k0 + kr, L, D);
-  write_bf16<DP>(dv, adv, base, rs, k0 + kr, L, D);
+  if constexpr (kDK) write_bf16<DP>(dk, adk, base, rs, k0 + kr, L, D);
+  if constexpr (kDV) write_bf16<DP>(dv, adv, base, rs, k0 + kr, L, D);
 }
 
 template <int DP, bool kCausal>
@@ -841,24 +743,42 @@ bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // ---------------------------------------------------------------------------
 // launch
 
-template <int DP>
-cudaError_t set_smem_dp() {
+template <int DP, int kOut>
+cudaError_t set_smem_dkv() {
   const cudaFuncAttribute attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
-  const int f_dkv = f32_dkv_floats<DP>() * (int)sizeof(float);
-  const int f_dq = f32_dq_floats<DP>() * (int)sizeof(float);
-  const int b_dkv = bf16_dkv_bytes<DP>(), b_dq = bf16_dq_bytes<DP>();
+  const int f = f32_dkv_floats<DP>() * (int)sizeof(float);
+  const int b = bf16_dkv_bytes<DP>();
   cudaError_t err;
-  if ((err = cudaFuncSetAttribute(bwd_dkv_f32<DP, false>, attr, f_dkv)) ||
-      (err = cudaFuncSetAttribute(bwd_dkv_f32<DP, true>, attr, f_dkv)) ||
-      (err = cudaFuncSetAttribute(bwd_dq_f32<DP, false>, attr, f_dq)) ||
-      (err = cudaFuncSetAttribute(bwd_dq_f32<DP, true>, attr, f_dq)) ||
-      (err = cudaFuncSetAttribute(bwd_dkv_bf16<DP, false>, attr, b_dkv)) ||
-      (err = cudaFuncSetAttribute(bwd_dkv_bf16<DP, true>, attr, b_dkv)) ||
-      (err = cudaFuncSetAttribute(bwd_dq_bf16<DP, false>, attr, b_dq)) ||
-      (err = cudaFuncSetAttribute(bwd_dq_bf16<DP, true>, attr, b_dq)))
+  if ((err = cudaFuncSetAttribute(bwd_dkv_f32<DP, false, kOut>, attr, f)) ||
+      (err = cudaFuncSetAttribute(bwd_dkv_f32<DP, true, kOut>, attr, f)) ||
+      (err = cudaFuncSetAttribute(bwd_dkv_bf16<DP, false, kOut>, attr, b)) ||
+      (err = cudaFuncSetAttribute(bwd_dkv_bf16<DP, true, kOut>, attr, b)))
     return err;
   return cudaSuccess;
 }
+
+template <int DP>
+cudaError_t set_smem_dp() {
+  const cudaFuncAttribute attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
+  const int f_dq = f32_dq_floats<DP>() * (int)sizeof(float);
+  const int b_dq = bf16_dq_bytes<DP>();
+  cudaError_t err;
+  if ((err = cudaFuncSetAttribute(bwd_dq_f32<DP, false>, attr, f_dq)) ||
+      (err = cudaFuncSetAttribute(bwd_dq_f32<DP, true>, attr, f_dq)) ||
+      (err = cudaFuncSetAttribute(bwd_dq_bf16<DP, false>, attr, b_dq)) ||
+      (err = cudaFuncSetAttribute(bwd_dq_bf16<DP, true>, attr, b_dq)))
+    return err;
+  if constexpr (split_dkv<DP>()) {
+    if ((err = set_smem_dkv<DP, 1>())) return err;
+    return set_smem_dkv<DP, 2>();
+  } else {
+    return set_smem_dkv<DP, 3>();
+  }
+}
+
+// the dK/dV kernel's outputs as a type (kOut), for the launch lambdas
+template <int N>
+using Out = std::integral_constant<int, N>;
 
 struct Args {
   const void *q, *k, *v, *dout;
@@ -877,16 +797,23 @@ void launch_f32(const Args& a, bool dkv) {
   const float* k = static_cast<const float*>(a.k);
   const float* v = static_cast<const float*>(a.v);
   const float* o = static_cast<const float*>(a.dout);
-  if (dkv)
-    bwd_dkv_f32<DP, kCausal>
+  auto dkv_out = [&](auto out) {
+    bwd_dkv_f32<DP, kCausal, decltype(out)::value>
         <<<grid, kF32Threads, f32_dkv_floats<DP>() * sizeof(float),
            a.stream>>>(q, k, v, o, a.lse, a.di, static_cast<float*>(a.dk),
                        static_cast<float*>(a.dv), a.L, a.H, a.D, a.scale);
-  else
+  };
+  if (dkv) {
+    if constexpr (split_dkv<DP>())
+      dkv_out(Out<1>{}), dkv_out(Out<2>{});
+    else
+      dkv_out(Out<3>{});
+  } else {
     bwd_dq_f32<DP, kCausal>
         <<<grid, kF32Threads, f32_dq_floats<DP>() * sizeof(float),
            a.stream>>>(q, k, v, o, a.lse, a.di, static_cast<float*>(a.dq),
                        a.L, a.H, a.D, a.scale);
+  }
 }
 
 template <int DP, bool kCausal>
@@ -896,16 +823,23 @@ void launch_bf16(const Args& a, bool dkv) {
   const bf16* k = static_cast<const bf16*>(a.k);
   const bf16* v = static_cast<const bf16*>(a.v);
   const bf16* o = static_cast<const bf16*>(a.dout);
-  if (dkv)
-    bwd_dkv_bf16<DP, kCausal>
+  auto dkv_out = [&](auto out) {
+    bwd_dkv_bf16<DP, kCausal, decltype(out)::value>
         <<<grid, kBf16Threads, bf16_dkv_bytes<DP>(), a.stream>>>(
             q, k, v, o, a.lse, a.di, static_cast<bf16*>(a.dk),
             static_cast<bf16*>(a.dv), a.L, a.H, a.D, a.scale);
-  else
+  };
+  if (dkv) {
+    if constexpr (split_dkv<DP>())
+      dkv_out(Out<1>{}), dkv_out(Out<2>{});
+    else
+      dkv_out(Out<3>{});
+  } else {
     bwd_dq_bf16<DP, kCausal>
         <<<grid, kBf16Threads, bf16_dq_bytes<DP>(), a.stream>>>(
             q, k, v, o, a.lse, a.di, static_cast<bf16*>(a.dq), a.L, a.H, a.D,
             a.scale);
+  }
 }
 
 template <int DP>
@@ -918,12 +852,13 @@ cudaError_t launch(const Args& a, int dtype, bool dkv) {
 }
 
 int run(const Args& a, int dtype, bool dkv) {
-  if (a.B <= 0 || a.L <= 0 || a.H <= 0 || a.D < 8 || a.D > 128 || a.D % 8 ||
-      a.B > 65535 || a.H > 65535 || (a.L + kTile - 1) / kTile > kMaxTiles ||
-      (dtype != 0 && dtype != 1))
+  if (a.B <= 0 || a.L <= 0 || a.H <= 0 || a.D < 8 ||
+      (a.D > 128 && a.D != 256) || a.D % 8 || a.B > 65535 || a.H > 65535 ||
+      (a.L + kTile - 1) / kTile > kMaxTiles || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  return (int)(a.D <= 64 ? launch<64>(a, dtype, dkv)
-                         : launch<128>(a, dtype, dkv));
+  return (int)(a.D <= 64    ? launch<64>(a, dtype, dkv)
+               : a.D <= 128 ? launch<128>(a, dtype, dkv)
+                            : launch<256>(a, dtype, dkv));
 }
 
 }  // namespace
@@ -934,13 +869,14 @@ extern "C" {
 int pio_flash_attn_bwd_init() {
   cudaError_t err = set_smem_dp<64>();
   if (err == cudaSuccess) err = set_smem_dp<128>();
+  if (err == cudaSuccess) err = set_smem_dp<256>();
   return (int)err;
 }
 
 // q, k, v, dout, dk, dv: [B, L, H, D] contiguous device buffers of one type
 // (dtype 0 = f32, 1 = bf16), 16-byte aligned; lse, di: [B, H, L] f32.
-// 8 <= D <= 128 with D % 8 == 0, L >= 1 and at most 65535 tiles of 64, B and
-// H <= 65535 (the wrapper checks). Writes every element of dk and dv.
+// D a multiple of 8 from 8 to 128, or 256; L >= 1 and at most 65535 tiles of
+// 64, B and H <= 65535 (the wrapper checks). Writes every element of dk and dv.
 // Launches on `stream`; returns the cudaError of the launch.
 int pio_flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
                            const void* dout, const void* lse, const void* di,

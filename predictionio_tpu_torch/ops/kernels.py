@@ -214,10 +214,10 @@ def _attn_args(name: str, qlike: dict, rows: dict) -> tuple[int, ...]:
                          f"expected {len(qlike)} equal [B, L, H, D]")
     B, L, H, D = q.shape
     if not (0 < B <= 65535 and 0 < H <= 65535 and L > 0
-            and D % 8 == 0 and 8 <= D <= 128):
+            and D % 8 == 0 and (8 <= D <= 128 or D == 256)):
         raise ValueError(f"{name}: shape {tuple(q.shape)}; the kernel takes "
                          "B, H in [1, 65535], L >= 1 and a head dim that is "
-                         "a multiple of 8 up to 128")
+                         "a multiple of 8 up to 128, or 256")
     if rows and -(-L // 64) > _ATTN_MAX_TILES:
         raise ValueError(f"{name}: L {L} is more than {_ATTN_MAX_TILES} "
                          "tiles of 64")
@@ -239,15 +239,16 @@ def _attn_args(name: str, qlike: dict, rows: dict) -> tuple[int, ...]:
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool,
-                        lse: torch.Tensor | None = None) -> torch.Tensor:
+                        *, causal: bool, lse: torch.Tensor | None = None,
+                        scale: float | None = None) -> torch.Tensor:
     """``softmax(q k^T / sqrt(D), causal mask) v`` for CUDA tensors
     ``[B, L, H, D]`` of one type (f32 or bf16), contiguous and 16-byte
     aligned, with ``L >= 1`` and a head dim ``D`` that is a multiple of 8
-    up to 128. Returns a new ``[B, L, H, D]`` tensor of ``q.dtype``. Given
+    up to 128, or 256. Returns a new ``[B, L, H, D]`` tensor of ``q.dtype``. Given
     ``lse``, a ``[B, H, L]`` f32 CUDA buffer, the kernel also writes each
     row's logsumexp of its scaled scores there (the backward's residual).
-    Anything else raises."""
+    ``scale`` multiplies the scores, ``1/sqrt(D)`` by default. Anything
+    else raises."""
     B, L, H, D = _attn_args("flash_attention_fwd", {"q": q, "k": k, "v": v},
                             {} if lse is None else {"lse": lse})
     lib = build()
@@ -256,7 +257,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     err = lib.pio_flash_attn_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(), B, L, H, D,
-        _ATTN_DTYPES[q.dtype], int(causal), 1.0 / (D**0.5), stream)
+        _ATTN_DTYPES[q.dtype], int(causal), _scale(scale, D), stream)
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError "
                            f"{err}")
@@ -264,17 +265,22 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def _scale(scale: float | None, D: int) -> float:
+    return 1.0 / (D**0.5) if scale is None else float(scale)
+
+
 def _bwd_args(name, q, k, v, do, lse, di):
     return _attn_args(name, {"q": q, "k": k, "v": v, "do": do},
                       {"lse": lse, "di": di})
 
 
-def flash_attention_bwd_dkv(q, k, v, do, lse, di, *, causal: bool):
+def flash_attention_bwd_dkv(q, k, v, do, lse, di, *, causal: bool,
+                            scale: float | None = None):
     """``(dk, dv)`` of ``flash_attention_fwd`` for the output gradient
     ``do``: q, k, v, do CUDA ``[B, L, H, D]`` of one type, ``lse`` the
     forward's logsumexp and ``di = rowsum(do * o)``, both ``[B, H, L]``
-    f32; the same shape rules as the forward. Returns two new ``[B, L, H,
-    D]`` tensors of ``q.dtype``. Anything else raises."""
+    f32; the same shape rules and ``scale`` as the forward. Returns two
+    new ``[B, L, H, D]`` tensors of ``q.dtype``. Anything else raises."""
     B, L, H, D = _bwd_args("flash_attention_bwd_dkv", q, k, v, do, lse, di)
     lib = build()
     dk, dv = torch.empty_like(q), torch.empty_like(q)
@@ -282,7 +288,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, di, *, causal: bool):
     err = lib.pio_flash_attn_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, L, H,
-        D, _ATTN_DTYPES[q.dtype], int(causal), 1.0 / (D**0.5), stream)
+        D, _ATTN_DTYPES[q.dtype], int(causal), _scale(scale, D), stream)
     if err:
         raise RuntimeError(f"flash_attention_bwd_dkv kernel launch failed: "
                            f"cudaError {err}")
@@ -290,7 +296,8 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, di, *, causal: bool):
     return dk, dv
 
 
-def flash_attention_bwd_dq(q, k, v, do, lse, di, *, causal: bool):
+def flash_attention_bwd_dq(q, k, v, do, lse, di, *, causal: bool,
+                           scale: float | None = None):
     """``dq`` of ``flash_attention_fwd`` from the same inputs as
     ``flash_attention_bwd_dkv``. Returns a new ``[B, L, H, D]`` tensor of
     ``q.dtype``. Anything else raises."""
@@ -301,7 +308,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, di, *, causal: bool):
     err = lib.pio_flash_attn_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), di.data_ptr(), dq.data_ptr(), B, L, H, D,
-        _ATTN_DTYPES[q.dtype], int(causal), 1.0 / (D**0.5), stream)
+        _ATTN_DTYPES[q.dtype], int(causal), _scale(scale, D), stream)
     if err:
         raise RuntimeError(f"flash_attention_bwd_dq kernel launch failed: "
                            f"cudaError {err}")

@@ -11,14 +11,23 @@ in ``q.dtype``; asked for it, it also returns each row's logsumexp.
 ``blockwise_attention_bwd`` is the plain version of the backward kernels
 ``csrc/flash_attn_bwd.cu`` (dK/dV and dQ), from that logsumexp.
 
-``flash_attention`` is the entry point the seqrec model calls. Without
-gradients (serving, ``torch.inference_mode``) it launches the forward
-kernel on a CUDA tensor and runs ``blockwise_attention`` on a CPU tensor.
-When grad is enabled and an input requires it, it goes through
-``FlashAttention``, the ``torch.autograd.Function`` that takes the
-``custom_vjp``'s place: its forward also writes the logsumexp, its backward
-computes ``di = rowsum(do * o)`` and launches the dK/dV and dQ kernels (the
-plain versions on a CPU tensor). Shapes the kernels do not take raise.
+``flash_attention`` is the entry point the seqrec model calls. The kernels
+take head dims that are multiples of 8 up to 128, and 256; any other head
+dim up to 256 is zero-padded along the features to the next of those
+(``_pad_features``: 10 to 16, 136 to 256), the kernels run with the scale
+1/sqrt(D) of the original D, and the output and gradients are sliced back
+to D. That is exact: zero features add exact zeros to Q K^T, the padded
+output columns are P times zeros, and the logsumexp and
+``di = rowsum(do * o)`` are unchanged. Without gradients (serving,
+``torch.inference_mode``) it launches the forward kernel on a CUDA tensor
+and runs ``blockwise_attention`` on a CPU tensor. When grad is enabled and
+an input requires it, it goes through ``FlashAttention``, the
+``torch.autograd.Function`` that takes the ``custom_vjp``'s place: its
+forward also writes the logsumexp, its backward computes ``di`` and
+launches the dK/dV and dQ kernels (the plain versions on a CPU tensor, so
+the CPU runs the same padding and wiring). On a CUDA tensor a head dim
+above 256, or a dtype other than f32 and bf16, raises in the kernel
+wrappers before any launch.
 
 Ring and Ulysses attention (``ppermute`` / ``all_to_all`` over a ``seq``
 mesh axis) come with the ``torch.distributed`` slice.
@@ -84,14 +93,16 @@ def _block_mask(L: int, L_pad: int, bs: int, i: int, causal: bool, dev):
 
 
 def blockwise_attention(q, k, v, *, causal: bool = False,
-                        block_size: int = 1024, return_lse: bool = False):
+                        block_size: int = 1024, return_lse: bool = False,
+                        scale: float | None = None):
     """Flash-style blockwise attention over K/V chunks, one device.
     q, k, v: [B, L, H, D]; returns q.dtype. The kernel's plain version.
     With ``return_lse`` it returns ``(out, lse)``, lse [B, H, L] f32 the
-    logsumexp m + log(l) of each row's scaled scores, from the carries."""
+    logsumexp m + log(l) of each row's scaled scores, from the carries.
+    ``scale`` multiplies the scores, 1/sqrt(D) by default."""
     B, L, H, D = q.shape
     f32 = torch.float32
-    scale = 1.0 / (D**0.5)
+    scale = 1.0 / (D**0.5) if scale is None else scale
     bs = min(block_size, L)
     nblk = (L + bs - 1) // bs
     L_pad = nblk * bs
@@ -130,7 +141,8 @@ def attention_di(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
 
 
 def blockwise_attention_bwd(q, k, v, o, lse, do, *, causal: bool = False,
-                            block_size: int = 1024):
+                            block_size: int = 1024,
+                            scale: float | None = None):
     """(dq, dk, dv) of ``blockwise_attention`` for the output gradient
     ``do``: the plain version of the backward kernels. q, k, v, o, do:
     [B, L, H, D]; lse: [B, H, L] f32 from the forward. Key block by key
@@ -140,11 +152,11 @@ def blockwise_attention_bwd(q, k, v, o, lse, do, *, causal: bool = False,
     are rounded to bf16 before the products they feed (dS from the
     unrounded P), as the kernels do. The kernels form P as ``exp2`` of
     (S * scale - lse) * log2(e) and sum in another order, so their f32
-    gradients differ from these in the last bits. Returns q.dtype
-    tensors."""
+    gradients differ from these in the last bits. ``scale`` is the
+    forward's, 1/sqrt(D) by default. Returns q.dtype tensors."""
     B, L, H, D = q.shape
     f32 = torch.float32
-    scale = 1.0 / (D**0.5)
+    scale = 1.0 / (D**0.5) if scale is None else scale
     bs = min(block_size, L)
     nblk = (L + bs - 1) // bs
     L_pad = nblk * bs
@@ -184,57 +196,85 @@ def blockwise_attention_bwd(q, k, v, o, lse, do, *, causal: bool = False,
     return back(dq), back(dk), back(dv)
 
 
+def _pad_features(*xs: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """[B, L, H, D] tensors zero-padded along D to the next head dim the
+    kernels take (a multiple of 8 up to 128, else 256), or the same tensors
+    when D is one already or above 256."""
+    D = xs[0].shape[-1]
+    pad = -D % 8 if D <= 128 else 256 - D if D <= 256 else 0
+    if not pad:
+        return xs
+    return tuple(torch.nn.functional.pad(x, (0, pad)) for x in xs)
+
+
 class FlashAttention(torch.autograd.Function):
     """Exact attention with the kernels' backward: the counterpart of the
     ``jax.custom_vjp`` around jax's Pallas TPU flash kernel. The forward
-    saves q, k, v, o and the logsumexp; the backward computes ``di`` and
-    runs the dK/dV and dQ kernels on CUDA tensors, the plain versions on CPU
-    tensors (so the CPU exercises the same wiring)."""
+    pads the features to a head dim the kernels take and saves the padded
+    q, k, v, o and the logsumexp; the backward pads the output gradient
+    alike, computes ``di`` and runs the dK/dV and dQ kernels on CUDA
+    tensors, the plain versions on CPU tensors (so the CPU exercises the
+    same wiring), then slices the gradients back to D."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, block_size: int):
+        D = q.shape[-1]
+        ctx.causal, ctx.block_size = causal, block_size
+        ctx.scale = 1.0 / (D**0.5)
+        q, k, v = _pad_features(q, k, v)
         if q.device.type == "cpu":
             o, lse = blockwise_attention(q, k, v, causal=causal,
                                          block_size=block_size,
-                                         return_lse=True)
+                                         return_lse=True, scale=ctx.scale)
         else:
             B, L, H, _ = q.shape
             lse = torch.empty((B, H, L), dtype=torch.float32,
                               device=q.device)
-            o = kernels.flash_attention_fwd(q, k, v, causal=causal, lse=lse)
+            o = kernels.flash_attention_fwd(q, k, v, causal=causal, lse=lse,
+                                            scale=ctx.scale)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.block_size = causal, block_size
-        return o
+        return o if o.shape[-1] == D else o[..., :D]
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
+        D = do.shape[-1]
         do = do.contiguous()
+        if o.shape[-1] != D:
+            (do,) = _pad_features(do)
         if q.device.type == "cpu":
             dq, dk, dv = blockwise_attention_bwd(
                 q, k, v, o, lse, do, causal=ctx.causal,
-                block_size=ctx.block_size)
+                block_size=ctx.block_size, scale=ctx.scale)
         else:
             di = attention_di(o, do)
-            dk, dv = kernels.flash_attention_bwd_dkv(q, k, v, do, lse, di,
-                                                     causal=ctx.causal)
-            dq = kernels.flash_attention_bwd_dq(q, k, v, do, lse, di,
-                                                causal=ctx.causal)
+            dk, dv = kernels.flash_attention_bwd_dkv(
+                q, k, v, do, lse, di, causal=ctx.causal, scale=ctx.scale)
+            dq = kernels.flash_attention_bwd_dq(
+                q, k, v, do, lse, di, causal=ctx.causal, scale=ctx.scale)
+        if o.shape[-1] != D:
+            dq, dk, dv = dq[..., :D], dk[..., :D], dv[..., :D]
         return dq, dk, dv, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = False,
                     block_size: int = 1024):
-    """Exact attention for [B, L, H, D]: the hand-written kernels on a CUDA
-    tensor (any L >= 1, head dim a multiple of 8 up to 128, f32 or bf16;
-    other shapes raise), the plain versions on a CPU tensor. Under autograd
-    (grad enabled and an input that requires it) it runs ``FlashAttention``,
-    whose backward is the dK/dV and dQ kernels. ``block_size`` is the plain
-    versions'; the kernels tile themselves."""
+    """Exact attention for [B, L, H, D] and any L >= 1: the hand-written
+    kernels on a CUDA tensor (f32 or bf16, any head dim up to 256, padded to
+    one the kernels take), their plain versions on a CPU tensor (any head
+    dim). Under autograd (grad enabled and an input that requires it) it
+    runs ``FlashAttention``, whose backward is the dK/dV and dQ kernels.
+    ``block_size`` is the plain versions'; the kernels tile themselves."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttention.apply(q, k, v, causal, block_size)
+    D = q.shape[-1]
+    scale = 1.0 / (D**0.5)
+    qp, kp, vp = _pad_features(q, k, v)
     if q.device.type == "cpu":
-        return blockwise_attention(q, k, v, causal=causal,
-                                   block_size=block_size)
-    return kernels.flash_attention_fwd(q, k, v, causal=causal)
+        o = blockwise_attention(qp, kp, vp, causal=causal,
+                                block_size=block_size, scale=scale)
+    else:
+        o = kernels.flash_attention_fwd(qp, kp, vp, causal=causal,
+                                        scale=scale)
+    return o if o.shape[-1] == D else o[..., :D]

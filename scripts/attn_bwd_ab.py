@@ -50,27 +50,37 @@ def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def build_old(path: Path, n: int):
-    """Build an earlier source as library ``n``: (lib, entry prefix)."""
+def build_renamed(path: Path, name: str, prefix: str, new_prefix: str,
+                  argtypes: dict) -> ctypes.CDLL:
+    """Build an earlier source as library ``name`` under the build
+    directory, its entry points' ``prefix`` renamed ``new_prefix``; give
+    each entry in ``argtypes`` (suffix -> ctypes types) an int result and
+    call its ``init``."""
     from torch.utils.cpp_extension import load
 
-    out = kernels.BUILD_DIR / f"ab_old{n}"
+    out = kernels.BUILD_DIR / name
     out.mkdir(parents=True, exist_ok=True)
-    prefix = f"pio_old{n}_flash_attn_bwd_"
-    src = out / "flash_attn_bwd_old.cu"
-    src.write_text(path.read_text().replace("pio_flash_attn_bwd_", prefix))
-    lib = ctypes.CDLL(load(name=f"pio_bwd_old{n}", sources=[str(src)],
+    src = out / path.name
+    src.write_text(path.read_text().replace(prefix, new_prefix))
+    lib = ctypes.CDLL(load(name=name, sources=[str(src)],
                            build_directory=str(out), extra_cuda_cflags=FLAGS,
                            is_python_module=False, verbose=False))
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    getattr(lib, prefix + "init").restype = i
-    getattr(lib, prefix + "dkv").argtypes = [p] * 8 + [i] * 6 + [f, p]
-    getattr(lib, prefix + "dkv").restype = i
-    getattr(lib, prefix + "dq").argtypes = [p] * 7 + [i] * 6 + [f, p]
-    getattr(lib, prefix + "dq").restype = i
-    err = getattr(lib, prefix + "init")()
+    for suffix, types in {"init": [], **argtypes}.items():
+        getattr(lib, new_prefix + suffix).argtypes = types
+        getattr(lib, new_prefix + suffix).restype = ctypes.c_int
+    err = getattr(lib, new_prefix + "init")()
     if err:
         raise RuntimeError(f"{path} init failed: cudaError {err}")
+    return lib
+
+
+def build_old(path: Path, n: int):
+    """Build an earlier source as library ``n``: (lib, entry prefix)."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    prefix = f"pio_old{n}_flash_attn_bwd_"
+    lib = build_renamed(path, f"pio_bwd_old{n}", "pio_flash_attn_bwd_",
+                        prefix, {"dkv": [p] * 8 + [i] * 6 + [f, p],
+                                 "dq": [p] * 7 + [i] * 6 + [f, p]})
     return lib, prefix
 
 
@@ -136,33 +146,38 @@ def compare(olds: dict, name: str, card: str, B, L, H, D,
     emit(rec)
 
 
+#: kernel names: bwd_dkv_*<DP, causal, outputs> and bwd_dq_*<DP, causal>,
+#: and the first version's flash_bwd_*<T, DP, causal>
 KERNEL = re.compile(r"(bwd_(?:dkv|dq)_(?:f32|bf16)|flash_bwd_(?:dkv|dq))"
-                    r"I(?:f|13__nv_bfloat16)?Li(\d+)ELb([01])E")
+                    r"I(?:f|13__nv_bfloat16)?Li(\d+)ELb([01])E(?:Li(\d)E)?")
 
 
 def dyn_smem(kind: str, dp: int) -> int | None:
     """Dynamic shared memory of the current kernels, as csrc/
     flash_attn_bwd.cu's f32_*_floats / bf16_*_bytes compute it."""
     if kind.endswith("_f32"):
-        bo = 128 if dp <= 64 else 64
+        bo, bs = (128 if dp <= 64 else 64), (64 if dp <= 128 else 16)
         sx, sy, bufs = bo + 4, dp + 4, (2 if dp <= 64 else 1)
-        floats = 2 * dp * sx + 4 * 64 * sy + (
-            bufs * 64 * sx + 4 * 64 if "dkv" in kind else 64 * sx)
+        floats = 2 * dp * sx + 4 * bs * sy + (
+            bufs * bs * sx + 4 * bs if "dkv" in kind else bs * sx)
         return 4 * floats
     if kind.endswith("_bf16"):
-        bs, sb = (64 if dp <= 64 else 32), dp + 8
+        bs, sb = (64 if dp <= 64 else 32 if dp <= 128 else 16), dp + 8
         return (2 * 64 + 4 * bs) * sb * 2 + (4 * bs * 4 if "dkv" in kind
                                              else 0)
     return None
 
 
-def resources(src: Path, tag: str) -> None:
+def kernel_resources(src: Path, cubin_name: str) -> dict:
+    """Compile ``src`` for sm_90a with ``nvcc -cubin -Xptxas -v``: each
+    kernel's mangled name -> its registers, spill and static shared-memory
+    bytes, and its ``HMMA`` and ``FFMA`` counts from ``cuobjdump -sass``."""
     cuda = Path("/usr/local/cuda/bin")
     nvcc = shutil.which("nvcc") or str(cuda / "nvcc")
     cuobjdump = shutil.which("cuobjdump") or str(cuda / "cuobjdump")
     out = kernels.BUILD_DIR / "resources"
     out.mkdir(parents=True, exist_ok=True)
-    cubin = out / f"{tag}.cubin"
+    cubin = out / f"{cubin_name}.cubin"
     run = subprocess.run([nvcc, "-cubin", "-O3", "-std=c++17",
                           "-arch=sm_90a", "-Xptxas", "-v", "-o", str(cubin),
                           str(src)], capture_output=True, text=True)
@@ -198,14 +213,20 @@ def resources(src: Path, tag: str) -> None:
             for op in ("HMMA", "FFMA"):
                 if re.search(rf"\b{op}\b", line):
                     counts[current][op] += 1
-    for fn, rec in sorted(info.items()):
+    return {fn: {**rec, **counts.get(fn, {})} for fn, rec in info.items()}
+
+
+def resources(src: Path, tag: str) -> None:
+    for fn, rec in sorted(kernel_resources(src, tag).items()):
         m = KERNEL.search(fn)
         kind, dp, causal = (m.group(1), int(m.group(2)), m.group(3) == "1") \
             if m else (fn, None, None)
+        outputs = {"1": "dv", "2": "dk", "3": "dk,dv"}.get(
+            m.group(4) if m else None)
         emit({"source": tag, "kernel": kind, "head_dim_pad": dp,
-              "causal": causal, **rec,
-              "dynamic_smem_bytes": dyn_smem(kind, dp) if dp else None,
-              **counts.get(fn, {})})
+              "causal": causal, **({"outputs": outputs} if outputs else {}),
+              **rec,
+              "dynamic_smem_bytes": dyn_smem(kind, dp) if dp else None})
 
 
 def main() -> int:

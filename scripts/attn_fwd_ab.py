@@ -1,0 +1,186 @@
+"""The attention forward kernel on one card: timed against earlier versions
+of its source, and as the compiler built it.
+
+    python3 scripts/attn_fwd_ab.py [--resources] [--old OLD.cu ...]
+                                   [--shapes train,f32,bf16,long,serve128,
+                                             tmpl_f32,tmpl_bf16]
+
+``--old`` (repeatable) names an earlier ``flash_attn.cu``, for example
+``git show <rev>:predictionio_tpu_torch/csrc/flash_attn.cu`` written under
+``predictionio_tpu_torch/_build/``. Each is built beside the current
+kernels with its entry points renamed, and at each of ``--shapes`` (causal
+attention) all versions are timed in turns (olds, new, new, olds reversed)
+with CUDA events, next to ``scaled_dot_product_attention`` as a yardstick.
+At each shape the new output is held against the first old version's
+within ``chip_smoke.ATTN_TOL``, and the new forward that writes the
+logsumexp must give the same output bits as the serving forward (no
+logsumexp). ``--resources`` compiles ``csrc/flash_attn.cu`` (and each
+``--old``) with ``nvcc -cubin -Xptxas -v`` for sm_90a and prints each
+kernel's registers, spill bytes and dynamic shared memory, and its ``HMMA``
+and ``FFMA`` counts from ``cuobjdump -sass``. One JSON object a line; exits
+non-zero without a card, and on a mismatch.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as cs  # noqa: E402
+from predictionio_tpu_torch.ops import kernels  # noqa: E402
+from scripts.attn_bwd_ab import (  # noqa: E402
+    build_renamed, emit, kernel_resources)
+
+#: (B, L, H, D, dtype), all causal: the training / serving shape (b_pad 8),
+#: the seqrec attention shape in both types, a long sequence, a full
+#: serving batch (b_pad 128) and the shipped template's (embed 48, 2 heads)
+SHAPES = {"train": (8, 4096, 8, 64, "float32"),
+          "f32": (4, 4096, 8, 64, "float32"),
+          "bf16": (4, 4096, 8, 64, "bfloat16"),
+          "long": (1, 16384, 8, 64, "bfloat16"),
+          "serve128": (128, 4096, 8, 64, "float32"),
+          "tmpl_f32": (8, 64, 2, 24, "float32"),
+          "tmpl_bf16": (8, 64, 2, 24, "bfloat16")}
+
+
+def build_old(path: Path, n: int):
+    """Build an earlier source as library ``n``: its forward entry point."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    prefix = f"pio_old{n}_flash_attn_"
+    lib = build_renamed(path, f"pio_fwd_old{n}", "pio_flash_attn_", prefix,
+                        {"fwd": [p, p, p, p, p, i, i, i, i, i, i, f, p]})
+    return getattr(lib, prefix + "fwd")
+
+
+def old_call(fwd, q, k, v, causal: bool):
+    B, L, H, D = q.shape
+    out = torch.empty_like(q)
+    err = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None,
+              B, L, H, D, kernels._ATTN_DTYPES[q.dtype], int(causal),
+              1.0 / D**0.5, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"old kernel launch failed: cudaError {err}")
+    return out
+
+
+def compare(olds: dict, name: str, card: str, B, L, H, D, dtype: str) -> bool:
+    """Time the current kernel and each earlier version in ``olds`` (tag ->
+    entry point) in turns: olds, new, new, olds reversed. Returns whether
+    the outputs held."""
+    dev, dt = torch.device("cuda"), getattr(torch, dtype)
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + B * L + D)
+    q, k, v = (torch.randn(B, L, H, D, generator=gen, device=dev)
+               .mul_(0.5).to(dt) for _ in range(3))
+    new = lambda: kernels.flash_attention_fwd(q, k, v, causal=True)  # noqa: E731
+    runs = {tag: (lambda fwd=fwd: old_call(fwd, q, k, v, True))
+            for tag, fwd in olds.items()}
+    first = next(iter(olds))
+    got, want = new(), runs[first]()
+    lse = torch.empty(B, H, L, device=dev)
+    bitwise = torch.equal(got, kernels.flash_attention_fwd(q, k, v,
+                                                           causal=True,
+                                                           lse=lse))
+    err = float((got.float() - want.float()).abs().max())
+    tol = cs.ATTN_TOL[dt]
+    held = bitwise and bool(torch.allclose(got.float(), want.float(),
+                                           rtol=tol, atol=tol))
+    del got, want, lse
+    rec = {"shape": name, "B": B, "L": L, "H": H, "D": D, "dtype": dtype,
+           "card": card, f"max_abs_err_vs_{first}": err, "tol": tol,
+           "lse_forward_bitwise": bitwise, "held": held}
+    iters, reps = (2, 3) if B * L * L * H >= 1 << 34 else (10, 5)
+    order = [*olds, "new", "new", *reversed(olds)]
+    times = {tag: [] for tag in order}
+    for tag in order:
+        times[tag].append(cs.device_ms(new if tag == "new" else runs[tag],
+                                       iters, reps))
+    for tag, ts in times.items():
+        rec[f"{tag}_ms"] = ts
+    rec[f"speedup_vs_{first}"] = sum(times[first]) / sum(times["new"])
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    rec["sdpa_ms"] = cs.device_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), iters, reps)
+    rec["bound_ms"], rec["bound_by"] = cs.attn_bound_ms(B, L, H, D, dt, True)
+    rec["new_share_of_bound"] = rec["bound_ms"] / min(times["new"])
+    emit(rec)
+    return held
+
+
+#: kernel names: the current source's fwd_f32<DP, BM, causal> (BM query
+#: rows a CTA) and fwd_bf16<DP, MT, causal> (64 * MT rows a CTA), and the
+#: first version's flash_fwd<T, DP, causal>
+KERNEL = re.compile(r"(fwd_f32|fwd_bf16|flash_fwd)I(f|13__nv_bfloat16)?"
+                    r"Li(\d+)E(?:Li(\d+)E)?Lb([01])E")
+
+
+def dyn_smem(kind: str, dp: int, rows: int | None) -> int | None:
+    """Dynamic shared memory of the current kernels at ``rows`` query rows
+    a CTA, as csrc/flash_attn.cu's F32Fwd::kFloats and bf16_fwd_bytes
+    compute it (keys per tile: 64, 32 at head dim 256)."""
+    bn = 64 if dp <= 128 else 32
+    if kind == "fwd_f32":
+        sx, sy = rows + 4, dp + 4
+        return 4 * (dp * sx + 4 * bn * sy + bn * sx)
+    if kind == "fwd_bf16":
+        return 2 * (rows + 4 * bn) * (dp + 8)
+    return None
+
+
+def resources(src: Path, tag: str) -> None:
+    for fn, rec in sorted(kernel_resources(src, f"fwd_{tag}").items()):
+        m = KERNEL.search(fn)
+        if m:
+            kind, dp = m.group(1), int(m.group(3))
+            bm = int(m.group(4)) if m.group(4) else None
+            if kind == "fwd_bf16":
+                bm *= 64  # MT m16 tiles a warp, 4 warps
+            dtype = "bf16" if (m.group(2) or "").endswith("bfloat16") or \
+                kind == "fwd_bf16" else "f32"
+            causal = m.group(5) == "1"
+        else:
+            kind, dtype, dp, bm, causal = fn, None, None, None, None
+        emit({"source": tag, "kernel": kind, "dtype": dtype,
+              "head_dim_pad": dp, "rows": bm, "causal": causal, **rec,
+              "dynamic_smem_bytes": dyn_smem(kind, dp, bm) if dp else None})
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--resources", action="store_true")
+    ap.add_argument("--old", type=Path, action="append", default=[])
+    ap.add_argument("--shapes", default=",".join(SHAPES))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("attn_fwd_ab: no CUDA device is visible", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    emit({"card": smi, "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+    kernels.build()
+    if args.resources:
+        resources(kernels.SOURCES[1], "new")
+        for path in args.old:
+            resources(path, path.stem)
+    held = True
+    if args.old:
+        olds = {path.stem: build_old(path, n)
+                for n, path in enumerate(args.old)}
+        for name in args.shapes.split(","):
+            held = compare(olds, name, smi, *SHAPES[name]) and held
+    return 0 if held else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
