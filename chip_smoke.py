@@ -10,12 +10,17 @@ no card is visible). It imports nothing of JAX or of ``predictionio_tpu``.
 2. Kernel vs plain on the card: ``topk`` and ``topk_rows`` against their
    plain PyTorch versions (``topk_reference`` / ``topk_rows_reference``) on
    the ML-20M catalog (27,136 x 128 padded f32) for B in {1, 8, 64, 128}
-   and k in {10, 64, 1000}, a 5-row catalog, a tie fixture (bitwise), the
-   gather variant with unknown rows, and one unpacked case past 2^24 rows
-   (an 8.6 GB catalog). Values agree within rtol 1e-5 / atol 1e-5 (the two
-   sum in different orders) and every returned id's plain score equals the
-   plain value at its rank; median times of the kernel, the plain version
-   and ``torch.topk(q @ items.T, k)``.
+   and k in {10, 64, 1000}, and on both sides of stage 1's switch (k 32:
+   the warp selection; k 40: the bitonic sort) at B 8 and 32; a 5-row
+   catalog; n_total off the 512-row tile and off a 256-row chunk (2,049
+   rows, B 20, k 32); tie fixtures at k 10, 32 and 200 (bitwise); the
+   gather variant with unknown rows at B 8, 16 and 128; and one unpacked
+   case past 2^24 rows (an 8.6 GB catalog). Values agree within rtol 1e-5
+   / atol 1e-5 (the two sum in different orders) and every returned id's
+   plain score equals the plain value at its rank; median times of the
+   kernel, the plain version and ``torch.topk(q @ items.T, k)``, and
+   device time by kernel (stage 1 against the merge) at ``topk`` B 128
+   and ``topk_rows`` B 8 and 128.
 3. Serving: an ML-20M-shaped ALS model (138,493 x 64 users, 26,744 x 64
    items, seeded random factors / sqrt(64)) deployed through the port's
    template, ``Deployed`` (prewarm on) and ``EngineServer``, behind
@@ -336,6 +341,21 @@ def phase_kernels(dev, *, n_items=N_ITEMS, n_users=N_USERS, rank=RANK,
         for k in (10, 64, 1000):
             recs.append(kernel_case(f"ml20m B={b} k={k}", q, items, n_items,
                                     k, timing=timing))
+    if timing:
+        # where the full plain-entry batch (b_pad 128, k_pad 16) spends its
+        # device time, by kernel
+        busy, _ = device_profile(lambda: [
+            kernels.topk(q, items, n_items, 16) for _ in range(20)])
+        recs[-3]["stage_ms"] = {k: v / 20 for k, v in busy.items()}
+    # both sides of the stage-1 switch (k_pad <= 32: warp selection, else
+    # the bitonic sort) at QT 8 and QT 32; a generator of their own keeps
+    # the other fixtures' data as it was
+    rng2 = np.random.default_rng(SEED + 1)
+    for b in (8, 32):
+        q = padded_queries(rng2, b, rank, items.shape[1], dev, scale)
+        for k in (32, 40):
+            recs.append(kernel_case(f"ml20m B={b} k={k}", q, items, n_items,
+                                    k))
     # the serving shapes, num <= 20 through the gather: a full micro-batch
     # and the 8-row bucket that most measured serving batches fill
     qtab = torch.zeros(_capacity(n_users), items.shape[1], device=dev)
@@ -348,9 +368,11 @@ def phase_kernels(dev, *, n_items=N_ITEMS, n_users=N_USERS, rank=RANK,
     recs.append(kernel_case("ml20m rows B=8 k=20", qtab, items, n_items, 20,
                             rows=rows[4:12].contiguous().to(dev),
                             timing=timing))
+    recs.append(kernel_case("ml20m rows B=16 k=20", qtab, items, n_items,
+                            20, rows=rows[:16].contiguous().to(dev)))
     if timing:
         # where one serving-shape call spends its device time, by kernel
-        for rec, sel in ((recs[-2], rows), (recs[-1], rows[4:12])):
+        for rec, sel in ((recs[-3], rows), (recs[-2], rows[4:12])):
             sel = sel.contiguous().to(dev)
             busy, _ = device_profile(lambda: [
                 kernels.topk_rows(sel, qtab, items, n_items, 24)
@@ -364,13 +386,16 @@ def phase_kernels(dev, *, n_items=N_ITEMS, n_users=N_USERS, rank=RANK,
     odd = padded_catalog(rng, 1000, 32, dev)
     recs.append(kernel_case("n_total=1000 k=10", padded_queries(
         rng, 3, 32, odd.shape[1], dev), odd, 1000, 10))
+    odd = padded_catalog(rng2, 2049, 128, dev)
+    recs.append(kernel_case("n_total=2049 B=20 k=32", padded_queries(
+        rng2, 20, 128, odd.shape[1], dev), odd, 2049, 32))
     # ties: integer-valued factors, duplicated rows and a zero query
     base = rng.integers(-3, 4, (1400, 24)).astype(np.float32)
     tie = np.concatenate([base, base[:136]], axis=0)
     tied, _ = _pad_items(tie, len(tie), 512)
     tq = np.zeros((8, tied.shape[1]), np.float32)
     tq[1:6, :24] = rng.integers(-3, 4, (5, 24))
-    for k in (10, 200):
+    for k in (10, 32, 200):
         recs.append(kernel_case(f"ties k={k}", torch.from_numpy(tq).to(dev),
                                 torch.from_numpy(tied).to(dev), len(tie), k,
                                 bitwise=True))

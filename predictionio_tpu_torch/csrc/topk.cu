@@ -11,13 +11,26 @@
 // Design. The TPU kernel walks the catalog in order on one core, revisiting
 // one output block; on a GPU that would serialise. Here the work splits in two:
 //
-//   stage 1 (topk_partial): one CTA per (query tile x 256-row catalog chunk).
-//     It stages its query rows (through `rows` into the query table for the
-//     gather variant) and the chunk in shared memory 32 features at a time,
-//     scores with f32 FMAs on CUDA cores (no TF32, no cuBLAS; the summation
-//     order is fixed, feature 0 first), masks id >= n_total to -inf, turns each
-//     score into a 64-bit key, bitonic-sorts each query's 256 keys and writes
-//     the best min(k, 256) to a workspace.
+//   stage 1: one CTA of 8 warps per (query tile of QT = 8, 16 or 32 x
+//     256-row catalog chunk). It scores with f32 FMAs on CUDA cores (no TF32,
+//     no cuBLAS; each score one fmaf chain from feature 0, so every version
+//     gives the same bits), masks id >= n_total to -inf, turns each score into
+//     a 64-bit key and writes the chunk's best kc = min(k, 256) keys, sorted
+//     descending, to a workspace. Two kernels, one list layout:
+//     - topk_select (kc <= 32, every serving shape). Warp w owns QT/8
+//       queries and lane l the items l, l+32, .., l+224, so each thread holds
+//       a QT/8 x 8 register tile of scores, fed by 16-byte shared loads
+//       (the items' rows padded to 36 floats, conflict-free; the queries'
+//       broadcast). The chunk's rows and the tile's query rows (through
+//       `rows` for the gather variant) stream in 32-feature slabs through a
+//       two-stage cp.async ring. The scores never leave registers: a lane
+//       sorts its 8 keys of a query with a 19-comparator network, then kc
+//       rounds each take the warp's largest head (two `redux.sync` maxima:
+//       the high words, then the low words of the heads that carry the
+//       largest high word) and the winning lane pops it.
+//     - topk_partial (kc > 32). One catalog row per thread against all QT
+//       queries, the chunk staged 32 features at a time, then a CTA-wide
+//       bitonic sort of each query's 256 keys.
 //   stage 2 (topk_merge): one CTA per query row merges the chunk lists
 //     pairwise, level by level, each key finding its place in the merged list
 //     by a binary search in the partner list; lists stay capped at k. The
@@ -31,9 +44,12 @@
 // catalog, 13.9 MB; up to 128 queries) one call reads the catalog once from
 // device memory (about 4 us at 3.35 TB/s) and does 2*B*N*D FLOP, 0.89 GFLOP at
 // B = 128 (about 13 us at 67 TFLOP/s f32): f32 FMA throughput bounds the large
-// batches, memory the small ones. This first version re-reads the catalog
-// once per query tile (from L2, where it stays resident) and spends shared
-// memory bandwidth on the 256-key sorts; both are left to later work.
+// batches, memory the small ones. Stage 1 re-reads the catalog once per query
+// tile (from L2, where it stays resident). In topk_select every warp reads
+// the whole chunk from shared memory, so at QT 32 the shared loads and the
+// FMAs take about as long as each other, and at QT 8 the shared loads bound
+// the scoring; at QT 32, kc 16 the selection costs about half as many
+// instructions as the scoring.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -183,6 +199,207 @@ topk_partial(const float* __restrict__ q, const int* __restrict__ rows,
   }
 }
 
+// Stage 1 for kc <= kSelMax: the same lists as topk_partial, from register
+// tiles and a warp selection instead of the CTA-wide bitonic sort.
+
+constexpr int kSelMax = 32;                  // largest kc the selection takes
+constexpr int kWarps = kThreads / 32;
+constexpr int kPerLane = kChunk / 32;        // a lane's keys of one query
+constexpr int kRowStride = kSlab + 4;        // 16-byte rows, LDS.128 conflict-free
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from src, or 16 zero bytes when !ok (src is then not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One ring stage: the chunk's kChunk item rows, then the QT query rows, each
+// a kSlab-feature slice padded to kRowStride floats.
+template <int QT>
+__host__ __device__ constexpr int select_stage_floats() {
+  return (kChunk + QT) * kRowStride;
+}
+
+template <int QT>
+__host__ __device__ constexpr int select_smem_bytes() {
+  return 2 * select_stage_floats<QT>() * int(sizeof(float));
+}
+
+__device__ __forceinline__ void order_desc(uint64_t& a, uint64_t& b) {
+  const uint64_t hi = a > b ? a : b, lo = a > b ? b : a;
+  a = hi;
+  b = lo;
+}
+
+// Batcher's 19-comparator network: k[0..7] sorted descending.
+__device__ __forceinline__ void sort8_desc(uint64_t (&k)[kPerLane]) {
+  order_desc(k[0], k[1]); order_desc(k[2], k[3]);
+  order_desc(k[4], k[5]); order_desc(k[6], k[7]);
+  order_desc(k[0], k[2]); order_desc(k[1], k[3]);
+  order_desc(k[4], k[6]); order_desc(k[5], k[7]);
+  order_desc(k[1], k[2]); order_desc(k[5], k[6]);
+  order_desc(k[0], k[4]); order_desc(k[1], k[5]);
+  order_desc(k[2], k[6]); order_desc(k[3], k[7]);
+  order_desc(k[2], k[4]); order_desc(k[3], k[5]);
+  order_desc(k[1], k[2]); order_desc(k[3], k[4]); order_desc(k[5], k[6]);
+}
+
+// Stage 1, kc <= kSelMax. grid = (n_chunks, b_pad / QT), block = kThreads;
+// the arguments and the lists written to ws are topk_partial's. Warp w owns
+// queries w*RQ .. w*RQ+RQ-1 of the tile, and lane l the chunk's items
+// l, l+32, .., l+224: each thread scores an RQ x 8 block, features streamed
+// through a two-stage cp.async ring, each score one fmaf chain from feature
+// 0 (topk_partial's order, so the same bits). A lane sorts its 8 keys of a
+// query in registers; then kc rounds each take the warp's largest head,
+// lane `round` keeps it and the winning lane pops it.
+template <int QT>
+__global__ void __launch_bounds__(kThreads, 2)
+topk_select(const float* __restrict__ q, const int* __restrict__ rows,
+            int64_t q_rows, const float* __restrict__ items, int64_t n_items,
+            int dim, int64_t n_total, int kc, int n_chunks,
+            uint64_t* __restrict__ ws) {
+  constexpr int RQ = QT / kWarps;
+  constexpr int kStage = select_stage_floats<QT>();
+  constexpr int kCopies = (kChunk + QT) * (kSlab / 4);  // 16-byte copies a stage
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ring = reinterpret_cast<float*>(smem);
+  __shared__ int64_t qrow[QT];
+
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int chunk = blockIdx.x;
+  const int b0 = blockIdx.y * QT;
+  const int64_t item0 = int64_t(chunk) * kChunk;
+
+  if (t < QT) {
+    int64_t r = b0 + t;
+    if (rows != nullptr) {
+      r = rows[b0 + t];
+      if (r < 0 || r >= q_rows) r = -1;     // scores as a zero query
+    }
+    qrow[t] = r;
+  }
+  __syncthreads();
+
+  auto stage = [&](int slab) {
+    float* buf = ring + (slab & 1) * kStage;
+    const int d0 = slab * kSlab;
+    for (int e = t; e < kCopies; e += kThreads) {
+      const int row = e / (kSlab / 4), c = (e % (kSlab / 4)) * 4;
+      const float* src = items;
+      bool ok;
+      if (row < kChunk) {
+        const int64_t gi = item0 + row;
+        ok = gi < n_items;
+        if (ok) src = items + gi * dim + d0 + c;
+      } else {
+        const int64_t r = qrow[row - kChunk];
+        ok = r >= 0;
+        if (ok) src = q + r * dim + d0 + c;
+      }
+      cp_async16(buf + row * kRowStride + c, src, ok);
+    }
+    cp_async_commit();
+  };
+
+  float acc[RQ][kPerLane];
+#pragma unroll
+  for (int r = 0; r < RQ; ++r)
+#pragma unroll
+    for (int j = 0; j < kPerLane; ++j) acc[r][j] = 0.0f;
+
+  const int n_slabs = dim / kSlab;
+  stage(0);
+  for (int slab = 0; slab < n_slabs; ++slab) {
+    if (slab + 1 < n_slabs) {
+      stage(slab + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* buf = ring + (slab & 1) * kStage;
+    const float* qs = buf + (kChunk + warp * RQ) * kRowStride;
+    const float* xs = buf + lane * kRowStride;
+#pragma unroll
+    for (int dd = 0; dd < kSlab; dd += 4) {
+      float4 qv[RQ], xv[kPerLane];
+#pragma unroll
+      for (int r = 0; r < RQ; ++r)
+        qv[r] = *reinterpret_cast<const float4*>(qs + r * kRowStride + dd);
+#pragma unroll
+      for (int j = 0; j < kPerLane; ++j)
+        xv[j] = *reinterpret_cast<const float4*>(xs + j * 32 * kRowStride + dd);
+#pragma unroll
+      for (int r = 0; r < RQ; ++r)
+#pragma unroll
+        for (int j = 0; j < kPerLane; ++j) {
+          float a = acc[r][j];
+          a = fmaf(qv[r].x, xv[j].x, a);
+          a = fmaf(qv[r].y, xv[j].y, a);
+          a = fmaf(qv[r].z, xv[j].z, a);
+          a = fmaf(qv[r].w, xv[j].w, a);
+          acc[r][j] = a;
+        }
+    }
+    __syncthreads();
+  }
+
+  uint64_t key[RQ][kPerLane];
+#pragma unroll
+  for (int r = 0; r < RQ; ++r) {
+#pragma unroll
+    for (int j = 0; j < kPerLane; ++j) {
+      const int64_t item = item0 + lane + 32 * j;
+      const float s = item < n_total ? acc[r][j] : -__int_as_float(0x7f800000);
+      key[r][j] = make_key(s, uint32_t(item));
+    }
+    sort8_desc(key[r]);
+  }
+
+  // Every real key is > 0 (its low word is ~id >= 1), so 0 marks a lane
+  // that has given up all its keys.
+  uint64_t out[RQ] = {};
+  for (int round = 0; round < kc; ++round) {
+#pragma unroll
+    for (int r = 0; r < RQ; ++r) {
+      // the warp's largest head: the largest high word, then the largest
+      // low word among the heads that carry it
+      const uint32_t khi = uint32_t(key[r][0] >> 32);
+      const uint32_t hi = __reduce_max_sync(0xffffffffu, khi);
+      const uint32_t lo = __reduce_max_sync(
+          0xffffffffu, khi == hi ? uint32_t(key[r][0]) : 0u);
+      const uint64_t m = (uint64_t(hi) << 32) | lo;
+      if (lane == round) out[r] = m;
+      const bool win = key[r][0] == m;
+#pragma unroll
+      for (int j = 0; j < kPerLane - 1; ++j)
+        key[r][j] = win ? key[r][j + 1] : key[r][j];
+      key[r][kPerLane - 1] = win ? 0ull : key[r][kPerLane - 1];
+    }
+  }
+  if (lane < kc) {
+#pragma unroll
+    for (int r = 0; r < RQ; ++r)
+      ws[(int64_t(b0 + warp * RQ + r) * n_chunks + chunk) * kc + lane] = out[r];
+  }
+}
+
 // Length of list `li` at a merge level where each list covers `span` chunks.
 __device__ __forceinline__ int list_len(int li, int span, int n_chunks, int kc,
                                         int k_pad) {
@@ -257,8 +474,12 @@ cudaError_t launch_partial(const float* q, const int* rows, int64_t q_rows,
                            int dim, int64_t n_total, int kc, int n_chunks,
                            uint64_t* ws, cudaStream_t stream) {
   dim3 grid(n_chunks, b_pad / QT);
-  topk_partial<QT><<<grid, kThreads, partial_smem_bytes<QT>(), stream>>>(
-      q, rows, q_rows, items, n_items, dim, n_total, kc, n_chunks, ws);
+  if (kc <= kSelMax)
+    topk_select<QT><<<grid, kThreads, select_smem_bytes<QT>(), stream>>>(
+        q, rows, q_rows, items, n_items, dim, n_total, kc, n_chunks, ws);
+  else
+    topk_partial<QT><<<grid, kThreads, partial_smem_bytes<QT>(), stream>>>(
+        q, rows, q_rows, items, n_items, dim, n_total, kc, n_chunks, ws);
   return cudaGetLastError();
 }
 
@@ -279,6 +500,18 @@ int pio_topk_init() {
   cudaError_t err = cudaFuncSetAttribute(
       topk_partial<32>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       partial_smem_bytes<32>());
+  if (err != cudaSuccess) return int(err);
+  err = cudaFuncSetAttribute(topk_select<8>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             select_smem_bytes<8>());
+  if (err != cudaSuccess) return int(err);
+  err = cudaFuncSetAttribute(topk_select<16>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             select_smem_bytes<16>());
+  if (err != cudaSuccess) return int(err);
+  err = cudaFuncSetAttribute(topk_select<32>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             select_smem_bytes<32>());
   if (err != cudaSuccess) return int(err);
   err = cudaFuncSetAttribute(topk_merge<true>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -4,7 +4,11 @@
   ``predictionio_tpu/ops/retrieval.py::_topk_kernel``. Entry points
   ``topk`` and ``topk_rows``: on a CUDA tensor each launches the kernel;
   on a CPU tensor each runs its plain PyTorch version,
-  ``ops.retrieval.topk_reference`` / ``topk_rows_reference``.
+  ``ops.retrieval.topk_reference`` / ``topk_rows_reference``. Stage 1
+  keeps each 256-row catalog chunk's best ``min(k_pad, 256)`` keys: for
+  ``k_pad <= 32`` (every serving shape) from f32 register tiles and a warp
+  selection, else by a bitonic sort; stage 2 merges the chunk lists. One
+  launch of either entry point runs both stages.
 - ``csrc/flash_attn.cu`` replaces jax's stock Pallas TPU flash-attention
   forward (``_flash_attention_kernel``), which
   ``predictionio_tpu/parallel/ring_attention.py::flash_attention`` calls.

@@ -51,11 +51,11 @@ def emit(obj: dict) -> None:
 
 
 def build_renamed(path: Path, name: str, prefix: str, new_prefix: str,
-                  argtypes: dict) -> ctypes.CDLL:
+                  argtypes: dict, init: str = "init") -> ctypes.CDLL:
     """Build an earlier source as library ``name`` under the build
     directory, its entry points' ``prefix`` renamed ``new_prefix``; give
     each entry in ``argtypes`` (suffix -> ctypes types) an int result and
-    call its ``init``."""
+    call the entry point ``new_prefix + init``."""
     from torch.utils.cpp_extension import load
 
     out = kernels.BUILD_DIR / name
@@ -65,10 +65,10 @@ def build_renamed(path: Path, name: str, prefix: str, new_prefix: str,
     lib = ctypes.CDLL(load(name=name, sources=[str(src)],
                            build_directory=str(out), extra_cuda_cflags=FLAGS,
                            is_python_module=False, verbose=False))
-    for suffix, types in {"init": [], **argtypes}.items():
+    for suffix, types in {init: [], **argtypes}.items():
         getattr(lib, new_prefix + suffix).argtypes = types
         getattr(lib, new_prefix + suffix).restype = ctypes.c_int
-    err = getattr(lib, new_prefix + "init")()
+    err = getattr(lib, new_prefix + init)()
     if err:
         raise RuntimeError(f"{path} init failed: cudaError {err}")
     return lib

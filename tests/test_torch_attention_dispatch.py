@@ -230,7 +230,8 @@ def test_dispatch_has_no_try():
     assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
 
 
-@pytest.mark.parametrize("script", ["attn_fwd_ab.py", "attn_bwd_ab.py"])
+@pytest.mark.parametrize("script", ["attn_fwd_ab.py", "attn_bwd_ab.py",
+                                    "topk_ab.py"])
 def test_card_scripts_import_no_jax(script):
     """The A/B scripts run on the machine with the card, which has no jax:
     like the port, they import none of it nor the JAX package."""
