@@ -95,9 +95,30 @@ no card is visible). It imports nothing of JAX or of ``predictionio_tpu``.
    ``Engine.train`` and seqrec template on the card, then served: u0's
    next item is i0.
 
-The ALS path (phase 3), the seqrec serving path (phase 5) and the seqrec
-training path (phase 6 b and c) are each driven with every launch count set
-to 0 just before and read just after. Before the last line it prints one
+7. ALS training. (a) Blocked WALS at the ML-20M shape: 20M ratings from
+   ``synth_ml20m`` (a copy of bench.py's) over 138,493 users x 26,744
+   items at rank 64, λ 0.1, nothing cut; the data and layout seconds, then
+   two steps from the same state, which must be bitwise equal, one
+   warm-up and 10 timed ``make_train_step`` iterations at float32, then
+   at bfloat16 (iterations/s each), one profiled iteration split into
+   gather+gramian, the chunked tier's segment sums and the solve, beside
+   their bounds, and the peak device memory. (b) A cholesky half-step
+   each way at full width against host float64 solves for 512 sampled
+   users and 512 sampled items (the chunked tier's owners among them),
+   within 1e-4 relative a row; CG's gap reported. (c) is the bitwise
+   check of (a). (d) ``bench.py::accuracy_gate`` copied: 200k ratings,
+   seed 3, rank 64, 3 iterations, cholesky f32 against CG at float32 and
+   at bfloat16, each RMSE gap ≤ 1e-3. (e) The ML-20M ratings trained
+   through the recommendation template's ``Engine.train`` (rank 64, 10
+   iterations) from an in-memory data source, deployed through
+   ``Deployed`` and ``EngineServer`` behind ``serve()``, and served: 16
+   sequential and 48 concurrent HTTP queries, each answer equal to a host
+   exact top-k, ``topk_rows`` launched.
+
+The ALS path (phase 3), the seqrec serving path (phase 5), the seqrec
+training path (phase 6 b and c) and the trained ALS model's serving path
+(phase 7e) are each driven with every launch count set to 0 just before
+and read just after. Before the last line it prints one
 JSON object with a record per kernel entry point (launches on its main
 path, error, times and bound); the last line is
 ``{"ok": true, "device": {...}}``.
@@ -120,12 +141,17 @@ import torch
 from predictionio_tpu_torch.controller import (DataSource, EngineParams,
                                                FirstServing, TrainResult)
 from predictionio_tpu_torch.convert import (als_model_from_numpy,
+                                            als_train_state_from_numpy,
                                             seqrec_model_from_numpy)
 from predictionio_tpu_torch.device import resolve_device
+from predictionio_tpu_torch.models import als
+from predictionio_tpu_torch.models.als import (ALSConfig, make_train_step,
+                                               train_als)
 from predictionio_tpu_torch.models.seq_attention import (
     Dense, SeqRec, SeqRecConfig, SeqRecModel, init_params, seq_rec_loss)
 from predictionio_tpu_torch.obs.metrics import METRICS
 from predictionio_tpu_torch.ops import kernels
+from predictionio_tpu_torch.ops.neighbors import build_bilinear_layout
 from predictionio_tpu_torch.ops.pipeline import _capacity
 from predictionio_tpu_torch.ops.retrieval import (
     PACKED_IDX_LIMIT, _pad_items, _query_shapes, topk_reference,
@@ -133,8 +159,10 @@ from predictionio_tpu_torch.ops.retrieval import (
 from predictionio_tpu_torch.parallel.ring_attention import (
     attention_di, blockwise_attention, blockwise_attention_bwd,
     flash_attention)
+from predictionio_tpu_torch.storage.bimap import BiMap
+from predictionio_tpu_torch.storage.frame import Ratings
 from predictionio_tpu_torch.templates.recommendation.engine import (
-    ALSAlgorithm, AlgorithmParams, engine_factory)
+    ALSAlgorithm, AlgorithmParams, TrainingData, engine_factory)
 from predictionio_tpu_torch.templates.seqrec import engine as seqrec_engine
 from predictionio_tpu_torch.workflow.context import Context
 from predictionio_tpu_torch.workflow.create_server import EngineServer, serve
@@ -195,6 +223,9 @@ TRAIN_BATCH, TRAIN_WARM, TRAIN_STEPS = 8, 2, 8
 # the cyclic fixture of tests/test_parallel_seq.py:150-175
 CYCLE_PARAMS = dict(max_len=12, embed_dim=32, num_heads=2, num_blocks=1,
                     epochs=30, batch_size=32, lr=3e-3)
+# ALS training (phase 7): bench.py's ML-20M shape (bench.py:28-29), 20M
+# ratings, λ 0.1, one warm-up and 10 timed iterations a compute dtype
+N_RATINGS, ALS_LAMBDA, ALS_TIMED = 20_000_000, 0.1, 10
 
 
 def check(ok: bool, what: str) -> None:
@@ -1327,6 +1358,395 @@ def phase_train_template(dev) -> dict:
             "phases": [[p, dt] for p, dt in ctx.phase_times]}
 
 
+# -- phase 7 ------------------------------------------------------------
+
+
+def synth_ml20m(n: int, seed: int = 0, *, n_users=N_USERS, n_items=N_ITEMS):
+    """ML-20M-shaped synthetic ratings, copied from ``bench.py::synth_ml20m``
+    (bench.py:118-130): zipf item popularity truncated at ML-20M's real max
+    item degree (~67k ratings for the top movie), uniform user activity,
+    ratings in [0.5, 5]."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, n_items + 1, dtype=np.float64)
+    pop = 1.0 / ranks**0.9
+    pop = np.minimum(pop / pop.sum(), 67_000 / N_RATINGS)
+    pop /= pop.sum()
+    items = rng.choice(n_items, size=n, p=pop).astype(np.int32)
+    users = rng.integers(0, n_users, n).astype(np.int32)
+    vals = (np.round(rng.random(n) * 9 + 1) / 2).astype(np.float32)
+    return users, items, vals
+
+
+def als_ratings(users, items, vals, n_users: int, n_items: int) -> Ratings:
+    return Ratings(
+        user_indices=users.astype(np.int64), item_indices=items.astype(np.int64),
+        ratings=vals, user_ids=BiMap({f"u{i}": i for i in range(n_users)}),
+        item_ids=BiMap({f"i{j}": j for j in range(n_items)}))
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def layout_stats(lay) -> dict:
+    return {"tiers": len(lay.metas),
+            "chunked_tiers": sum(m.seg is not None for m in lay.metas),
+            "chunk_rows": int(sum(b.padded_rows for b, m in
+                                  zip(lay.buckets, lay.metas)
+                                  if m.seg is not None)),
+            "covered_rows": int(sum(m.span for m in lay.metas)),
+            "padded_entries": int(sum(b.ids.size for b in lay.buckets)),
+            "slots": int(lay.slots)}
+
+
+#: the three parts of a half-step the split reads, by the module function
+#: that computes each (``_solve_side`` looks them up at call time)
+ALS_PARTS = {"gather+gramian": "_gram_blocks", "segment sums": "_segment_sum",
+             "solve": "_spd_solve"}
+
+
+@contextlib.contextmanager
+def als_part_probes():
+    """Wrap ``_gram_blocks``, ``_segment_sum`` and ``_spd_solve`` in a
+    profiler range each (``als.<part>``)."""
+    from torch.profiler import record_function
+
+    saved = {part: getattr(als, fn) for part, fn in ALS_PARTS.items()}
+
+    def probe(part, fn):
+        def wrapped(*args, **kwargs):
+            with record_function(f"als.{part}"):
+                return fn(*args, **kwargs)
+        return wrapped
+
+    for part, fn in ALS_PARTS.items():
+        setattr(als, fn, probe(part, saved[part]))
+    try:
+        yield
+    finally:
+        for part, fn in ALS_PARTS.items():
+            setattr(als, fn, saved[part])
+
+
+def als_step_split(dev, run) -> dict:
+    """One iteration ``run()`` under the profiler with the part probes:
+    device ms of each part (the kernel time under each ``als.<part>``
+    range) and its five largest kernels, and the iteration's whole kernel
+    time. On the CPU the profiler sees no device: the parts are None."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+    with als_part_probes(), profile(activities=acts) as prof:
+        run()
+        sync(dev)
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    out = {"parts_ms": {}, "part_kernels_ms": {}}
+
+    def kernels_under(e, acc):
+        for k in e.kernels:
+            acc[k.name] = acc.get(k.name, 0.0) + k.duration / 1e3
+        for ch in e.cpu_children:
+            kernels_under(ch, acc)
+        return acc
+
+    for part in ALS_PARTS:
+        # a CPU range's device time is its children's kernel time
+        out["parts_ms"][part] = (sum(
+            e.device_time_total for e in events
+            if e.name == f"als.{part}" and e.device_type == DeviceType.CPU)
+            / 1e3 if dev.type == "cuda" else None)
+        acc: dict = {}
+        for e in events:
+            if e.name == f"als.{part}" and e.device_type == DeviceType.CPU:
+                kernels_under(e, acc)
+        # the part's five largest kernels by device ms (names cut short)
+        out["part_kernels_ms"][part] = [
+            [name[:90], ms] for name, ms in
+            sorted(acc.items(), key=lambda kv: -kv[1])[:5]]
+    if dev.type == "cuda":
+        out["kernel_ms"] = sum(
+            e.device_time_total for e in events
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)) / 1e3
+        out["other_ms"] = out["kernel_ms"] - sum(out["parts_ms"].values())
+    return out
+
+
+def als_bounds(u_lay, i_lay, rank: int, cg_iters: int, val_bytes: int) -> dict:
+    """The least time (ms, at H100 SXM peaks) of each part of one
+    iteration, as the torch ops compute it: gather+gramian writes the
+    gathered f32 [B, D, R] blocks and reads them back for the products
+    (2·entries·R² + 2·entries·R f32 FLOP, no tensor cores: TF32 is off)
+    and writes the equations; the chunked tier's sums read the partial
+    equations and write the owners'; each solve reads the equations once
+    for the residual and once per CG iteration. ``fused`` is the least any
+    kernel could take: ratings and factors read once, factors written
+    once, the gramian FLOPs."""
+    eq = rank * rank + 2 * rank + 1  # a, b, diagonal, n per row (f32)
+    nbytes = {"gather+gramian": 0, "segment sums": 0, "solve": 0}
+    flops = {"gather+gramian": 0, "segment sums": 0, "solve": 0}
+    fused_bytes = fused_flops = 0
+    for lay in (u_lay, i_lay):
+        entries = sum(b.ids.size for b in lay.buckets)
+        block_rows = sum(b.padded_rows for b in lay.buckets)
+        covered = sum(m.span for m in lay.metas)
+        chunk_rows = sum(b.padded_rows for b, m in zip(lay.buckets, lay.metas)
+                         if m.seg is not None)
+        owners = sum(m.span for m in lay.metas if m.seg is not None)
+        nbytes["gather+gramian"] += (entries * (4 + val_bytes)
+                                     + 2 * entries * rank * 4
+                                     + block_rows * eq * 4)
+        flops["gather+gramian"] += 2 * entries * rank * (rank + 1)
+        nbytes["segment sums"] += (chunk_rows + owners) * eq * 4
+        nbytes["solve"] += (cg_iters + 1) * covered * rank * rank * 4 \
+            + covered * rank * 4 * 8
+        flops["solve"] += (cg_iters + 1) * 2 * covered * rank * rank
+        fused_bytes += entries * (4 + val_bytes) + 2 * lay.slots * rank * 4
+        fused_flops += 2 * entries * rank * (rank + 1) \
+            + (cg_iters + 1) * 2 * covered * rank * rank
+    out = {}
+    for part in nbytes:
+        tb, to = nbytes[part] / PEAK_BYTES_S, flops[part] / PEAK_F32_FLOP_S
+        out[part] = {"bound_ms": max(tb, to) * 1e3,
+                     "bound_by": "bytes" if tb >= to else "operations",
+                     "gbytes": nbytes[part] / 1e9, "gflop": flops[part] / 1e9}
+    tb, to = fused_bytes / PEAK_BYTES_S, fused_flops / PEAK_F32_FLOP_S
+    out["fused"] = {"bound_ms": max(tb, to) * 1e3,
+                    "bound_by": "bytes" if tb >= to else "operations",
+                    "gbytes": fused_bytes / 1e9, "gflop": fused_flops / 1e9}
+    return out
+
+
+def host_half_step(order, starts, other_idx, vals, rows, other64, lam):
+    """Exact float64 ALS-WR solves for ``rows``: (A + λ·n·I) x = b from
+    their ratings (``order`` sorts the entries by row; ``starts`` bounds
+    each row's run) against the other side's factors in true row order."""
+    rank = other64.shape[1]
+    out = np.zeros((len(rows), rank))
+    for k, r in enumerate(rows):
+        idx = order[starts[r]:starts[r + 1]]
+        f = other64[other_idx[idx]]
+        a = f.T @ f + lam * max(len(idx), 1) * np.eye(rank)
+        out[k] = np.linalg.solve(a, f.T @ vals[idx].astype(np.float64))
+    return out
+
+
+def row_rel_err(got, want) -> np.ndarray:
+    return (np.linalg.norm(got - want, axis=1)
+            / np.maximum(np.linalg.norm(want, axis=1), 1e-30))
+
+
+def accuracy_gate(dev, *, n: int = 200_000, seed: int = 3, rank: int = RANK,
+                  n_users=N_USERS, n_items=N_ITEMS) -> dict:
+    """``bench.py::accuracy_gate`` (bench.py:2602-2636), copied onto the
+    port: train three times on a 200k-rating sample (rank 64, 3
+    iterations, λ 0.1, seed 5) — cholesky in f32, CG in f32 and CG in
+    bf16 — and compare reconstruction RMSE over observed entries; each CG
+    gap to the exact solver's must be ≤ 1e-3."""
+    users, items, vals = synth_ml20m(n, seed=seed, n_users=n_users,
+                                     n_items=n_items)
+    nu, ni = int(users.max()) + 1, int(items.max()) + 1
+    r = als_ratings(users, items, vals, nu, ni)
+
+    def rmse(m):
+        pred = np.einsum("nr,nr->n", m.user_factors[users],
+                         m.item_factors[items])
+        return float(np.sqrt(np.mean((pred - vals) ** 2)))
+
+    base = dict(rank=rank, iterations=3, lambda_=0.1, seed=5)
+    exact = rmse(train_als(r, ALSConfig(**base, solver="cholesky",
+                                        compute_dtype="float32"), device=dev))
+    out = {"n": n, "seed": seed, "exact_f32_rmse": exact}
+    for dtype in ("float32", "bfloat16"):
+        fast = rmse(train_als(r, ALSConfig(**base, solver="cg",
+                                           compute_dtype=dtype), device=dev))
+        gap = abs(fast - exact)
+        check(gap <= 1e-3, f"accuracy gate: cg/{dtype} RMSE gap {gap:.2e} "
+              f"> 1e-3")
+        out[f"cg_{dtype}_rmse"] = fast
+        out[f"cg_{dtype}_gap"] = gap
+    return out
+
+
+class MemoryRatings(DataSource):
+    """An in-memory data source of the phase's ratings (the event store
+    comes with the storage slice)."""
+
+    ratings: Ratings | None = None
+
+    def read_training(self, ctx):
+        return TrainingData(MemoryRatings.ratings)
+
+
+def phase_als_train(dev, *, n_ratings=N_RATINGS, n_users=N_USERS,
+                    n_items=N_ITEMS, rank=RANK, timed=ALS_TIMED,
+                    gate_n=200_000, n_check=512, template_iters=10,
+                    n_seq=16, n_conc=48, procs=4, threads=12) -> dict:
+    """Blocked WALS training at the ML-20M shape (20M ratings over 138,493
+    x 26,744 at rank 64, λ 0.1, nothing cut), then the template trained
+    and served. Every check raises on failure."""
+    out: dict = {"n_ratings": n_ratings, "users": n_users, "items": n_items,
+                 "rank": rank, "lambda": ALS_LAMBDA}
+    t0 = time.perf_counter()
+    users, items, vals = synth_ml20m(n_ratings, seed=0, n_users=n_users,
+                                     n_items=n_items)
+    out["data_s"] = time.perf_counter() - t0
+    cfg = ALSConfig(rank=rank, lambda_=ALS_LAMBDA)
+    t0 = time.perf_counter()
+    u_lay, i_lay = build_bilinear_layout(
+        users, items, vals, n_users, n_items, tiers=cfg.tiers,
+        gather_budget=cfg.gather_budget, seed=cfg.seed,
+        chunk_cap=cfg.chunk_cap)
+    out["layout_s"] = time.perf_counter() - t0
+    out["layout"] = {"users": layout_stats(u_lay), "items": layout_stats(i_lay)}
+    rng = np.random.default_rng(SEED)
+    u0 = (np.abs(rng.standard_normal((n_users, rank))) / np.sqrt(rank)
+          ).astype(np.float32)
+    v0 = (np.abs(rng.standard_normal((n_items, rank))) / np.sqrt(rank)
+          ).astype(np.float32)
+    warm = als._resolve_cg_iters(None, False, warm=True)
+
+    # (a) iterations per second at float32, then bfloat16; (c) two steps
+    # from the same state are bitwise equal
+    for dtype in ("float32", "bfloat16"):
+        vd = "bfloat16" if dtype == "bfloat16" else None
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ub, ib, up, vp = als_train_state_from_numpy(
+            u_lay, i_lay, u0, v0, device=dev, vals_dtype=vd)
+        sync(dev)
+        upload_s = time.perf_counter() - t0
+        step = make_train_step(u_lay, i_lay, rank=rank, lambda_=ALS_LAMBDA,
+                               compute_dtype=dtype)
+        u1, v1 = step(ub, ib, up, vp)
+        u2, v2 = step(ub, ib, up, vp)
+        check(torch.equal(u1, u2) and torch.equal(v1, v2),
+              f"two {dtype} steps from the same state differ")
+        del u2, v2
+        u, v = step(ub, ib, u1, v1)  # warm-up
+        sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            u, v = step(ub, ib, u, v)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        check(bool(torch.isfinite(u).all() and torch.isfinite(v).all()),
+              f"non-finite factors after {dtype} training")
+        rec = {"upload_s": upload_s, "iters": timed, "wall_s": wall,
+               "iters_per_s": timed / wall, "ms_per_iter": wall / timed * 1e3,
+               "bitwise_run_to_run": True}
+        split = als_step_split(dev, lambda: step(ub, ib, u, v))
+        rec.update(split)
+        rec["bounds"] = als_bounds(u_lay, i_lay, rank, warm,
+                                   2 if vd else 4)
+        if dev.type == "cuda":
+            rec["peak_device_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        out[dtype] = rec
+        print(f"[als-train] {dtype}: {rec['iters_per_s']:.2f} iterations/s "
+              f"({rec['ms_per_iter']:.2f} ms), parts "
+              f"{json.dumps(rec['parts_ms'])}", flush=True)
+        if dtype == "float32":
+            f32_state = (ub, ib, u, v)
+        del ub, ib, up, vp, u, v, u1, v1
+
+    # (b) a cholesky half-step each way against host float64 solves for
+    # sampled rows (the heaviest items, chunked-tier owners, among them);
+    # CG's warm depth-4 half-step from the same state reports its gap
+    ub, ib, u, v = f32_state
+    del f32_state
+    kw = dict(lambda_=ALS_LAMBDA, implicit=False, alpha=1.0, rank=rank,
+              compute_dtype="float32", solver="cholesky", cg_iters=warm)
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        u_ch = als._solve_side(ub, u_lay, v, kw=kw)
+        v_ch = als._solve_side(ib, i_lay, u, kw=kw)
+        sync(dev)
+        chol_s = time.perf_counter() - t0
+        u_cg = als._solve_side(ub, u_lay, v, kw=dict(kw, solver="cg"), x0=u)
+        v_cg = als._solve_side(ib, i_lay, u, kw=dict(kw, solver="cg"), x0=v)
+    u_true = u.cpu().numpy()[u_lay.pos].astype(np.float64)
+    v_true = v.cpu().numpy()[i_lay.pos].astype(np.float64)
+    crng = np.random.default_rng(SEED + 7)
+    deg_i = np.bincount(items, minlength=n_items)
+    owners = np.nonzero(deg_i > cfg.chunk_cap)[0]
+    s_items = np.unique(np.concatenate([
+        owners[:n_check // 8],
+        crng.choice(np.nonzero(deg_i > 0)[0], n_check, replace=False)]))[:n_check]
+    deg_u = np.bincount(users, minlength=n_users)
+    s_users = crng.choice(np.nonzero(deg_u > 0)[0], n_check, replace=False)
+    check_rec = {"sampled_users": len(s_users), "sampled_items": len(s_items),
+                 "chunked_owners": int(np.isin(s_items, owners).sum()),
+                 "cholesky_half_steps_s": chol_s}
+    for side, rows, idx, other_idx, other64, lay, ch, cg in (
+            ("users", s_users, users, items, v_true, u_lay, u_ch, u_cg),
+            ("items", s_items, items, users, u_true, i_lay, v_ch, v_cg)):
+        order = np.argsort(idx, kind="stable")
+        starts = np.zeros(len(lay.pos) + 1, np.int64)
+        np.cumsum(np.bincount(idx, minlength=len(lay.pos)), out=starts[1:])
+        want = host_half_step(order, starts, other_idx, vals, rows, other64,
+                              ALS_LAMBDA)
+        slots = lay.pos[rows]
+        err_ch = row_rel_err(ch.cpu().numpy()[slots], want)
+        err_cg = row_rel_err(cg.cpu().numpy()[slots], want)
+        check(float(err_ch.max()) <= 1e-4,
+              f"cholesky {side} half-step {err_ch.max():.2e} from float64")
+        check_rec[f"{side}_cholesky_max_rel_err"] = float(err_ch.max())
+        check_rec[f"{side}_cg_max_rel_err"] = float(err_cg.max())
+        check_rec[f"{side}_cg_median_rel_err"] = float(np.median(err_cg))
+    out["float64_check"] = check_rec
+    print("[als-train] float64 check " + json.dumps(check_rec), flush=True)
+    del ub, ib, u, v, u_ch, v_ch, u_cg, v_cg
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # (d) the accuracy gate
+    out["accuracy_gate"] = accuracy_gate(dev, n=gate_n, rank=rank,
+                                         n_users=n_users, n_items=n_items)
+    print("[als-train] accuracy gate " + json.dumps(out["accuracy_gate"]),
+          flush=True)
+
+    # (e) the template: Engine.train on the ML-20M ratings, then deployed
+    # and served over HTTP, every answer against a host exact top-k
+    MemoryRatings.ratings = als_ratings(users, items, vals, n_users, n_items)
+    engine = engine_factory()
+    engine.data_source_classes = {"": MemoryRatings}
+    ctx = Context(device=dev)
+    params = AlgorithmParams(rank=rank, num_iterations=template_iters,
+                             lambda_=ALS_LAMBDA)
+    t0 = time.perf_counter()
+    result = engine.train(ctx, EngineParams(
+        algorithm_params_list=(("als", params),)))
+    train_s = time.perf_counter() - t0
+    MemoryRatings.ratings = None
+    model = result.models[0]
+    check(model.user_factors.shape == (n_users, rank)
+          and model.item_factors.shape == (n_items, rank)
+          and np.isfinite(model.user_factors).all()
+          and np.isfinite(model.item_factors).all(),
+          "the template-trained factors are not finite [rows, rank]")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    reset_launches()
+    server = EngineServer(engine_factory(), result, "chip-smoke-als-train",
+                          device=dev)
+    serving = phase_serving(dev, server, n_seq=n_seq, n_conc=n_conc,
+                            procs=procs, threads=threads)
+    launches = dict(kernels.LAUNCHES)
+    check(launches["topk_rows"] > 0,
+          f"topk_rows never launched serving the trained model: {launches}")
+    del server
+    out["template"] = {"iterations": template_iters, "train_s": train_s,
+                       "phases": [[p, dt] for p, dt in ctx.phase_times],
+                       "serving": serving, "launches": launches}
+    return out
+
+
 # -- main ---------------------------------------------------------------
 
 
@@ -1452,6 +1872,14 @@ def main() -> int:
                                             "launches": train_launches}),
           flush=True)
     clock.lap("6b-c seqrec training")
+
+    # the ALS training path: train at full width, then the template
+    # trained, deployed and served (phase_als_train resets the launch
+    # counts before it deploys)
+    als_train = phase_als_train(dev)
+    als_train["card"] = smi
+    print("[als-train] " + json.dumps(als_train), flush=True)
+    clock.lap("7 ALS training")
 
     by_case = {r["case"]: r for r in recs}
     by_attn = {r["case"]: r for r in attn}

@@ -136,8 +136,14 @@ class Engine(Generic[TD, EI, PD, Q, P, A]):
         models = []
         for i, (name, algo) in enumerate(zip(names, algos)):
             log.info("Training algorithm %r (%s)", name, type(algo).__name__)
-            with phase_timer(ctx, f"train[{name or type(algo).__name__}#{i}]"):
-                m = algo.train(ctx, pd)
+            # namespace per-algorithm state (e.g. training checkpoints):
+            # two entries of the same algorithm class must not collide
+            ctx.current_algorithm = f"{name or type(algo).__name__}#{i}"
+            try:
+                with phase_timer(ctx, f"train[{ctx.current_algorithm}]"):
+                    m = algo.train(ctx, pd)
+            finally:
+                ctx.current_algorithm = None
             _maybe_sanity_check(m, skip_sanity, f"Model of {type(algo).__name__}")
             models.append(m)
         serving = self.make_serving(engine_params)

@@ -1,19 +1,21 @@
-"""Carry trained weights into the port.
+"""Carry trained weights and training inputs into the port.
 
 A model trained elsewhere (the JAX package's ALS or seqrec, for one)
-reaches the port as plain arrays and id lists; nothing here touches the
-object that produced them.
+reaches the port as plain arrays and id lists; so does the device state
+of an ALS training run (the layout's numpy arrays and a true-row-order
+init). Nothing here touches the object that produced them.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from .models.als import ALSConfig, ALSModel
+from .models.als import ALSConfig, ALSModel, put_layout, to_slots
 from .models.seq_attention import SeqRecConfig, SeqRecModel
 from .storage.bimap import BiMap
 
-__all__ = ["als_model_from_numpy", "seqrec_model_from_numpy"]
+__all__ = ["als_model_from_numpy", "als_train_state_from_numpy",
+           "seqrec_model_from_numpy"]
 
 
 def als_model_from_numpy(user_factors, item_factors, user_ids, item_ids, *,
@@ -40,6 +42,20 @@ def als_model_from_numpy(user_factors, item_factors, user_ids, item_ids, *,
                          implicit_prefs=implicit_prefs, alpha=alpha))
     model.attach_retriever(device=device)
     return model
+
+
+def als_train_state_from_numpy(u_layout, i_layout, u0, v0, *, device=None,
+                               vals_dtype=None):
+    """The device state ``make_train_step`` runs on, from host arrays:
+    ``(u_buckets, i_buckets, u_perm, v_perm)``. ``u_layout`` / ``i_layout``
+    are the two sides of ``build_bilinear_layout`` (the port's, or the JAX
+    package's: only their numpy arrays are read); ``u0`` / ``v0`` are
+    true-row-order factors [rows, R], permuted into slot order with every
+    slot no row owns left exactly zero. ``vals_dtype="bfloat16"`` is the
+    bf16 compute path's upload. ``device`` None means CUDA."""
+    return (put_layout(u_layout, device, vals_dtype=vals_dtype),
+            put_layout(i_layout, device, vals_dtype=vals_dtype),
+            to_slots(u0, u_layout, device), to_slots(v0, i_layout, device))
 
 
 def seqrec_model_from_numpy(params, seqs, user_ids, item_ids,

@@ -1,9 +1,15 @@
-"""Recommendation engine template — serving on the port.
+"""Recommendation engine template on the port.
 
-The port of ``templates/recommendation/engine.py``: the query and result
-types, the ALS algorithm's predict and batch_predict, and the engine
-factory. ``ALSAlgorithm.train`` comes with the ALS training slice; until
-then a model reaches the template through ``convert.als_model_from_numpy``.
+The port of ``templates/recommendation/engine.py``: the algorithm
+parameters, the query and result types, ``TrainingData``,
+``RecommendationPreparator``, ``ALSAlgorithm`` (``train`` runs blocked
+WALS through ``models/als.py::train_als`` on the context's device, with
+the context's checkpointer; ``predict`` and ``batch_predict`` serve the
+factors through the hand-written top-k kernel) and the engine factory.
+The data source reads the event store, which comes with the storage
+slice: until then a caller registers a ``DataSource`` of its own that
+returns ``TrainingData`` (``engine.data_source_classes``), or builds a
+model with ``convert.als_model_from_numpy``.
 
 Query:  {"user": "u1", "num": 4}
 Result: {"itemScores": [{"item": "i1", "score": 3.2}, ...]}
@@ -13,8 +19,10 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-from ...controller import Algorithm, Engine, FirstServing, Params
-from ...models.als import ALSModel
+from ...controller import (Algorithm, Engine, FirstServing, Params,
+                           Preparator, SanityCheck)
+from ...models.als import ALSConfig, ALSModel, train_als
+from ...storage.frame import Ratings
 
 
 @dataclass(frozen=True)
@@ -44,14 +52,42 @@ class PredictedResult:
     itemScores: tuple = ()
 
 
+class TrainingData(SanityCheck):
+    def __init__(self, ratings: Ratings):
+        self.ratings = ratings
+
+    def sanity_check(self) -> None:
+        if len(self.ratings) == 0:
+            raise ValueError(
+                "No rate/buy events found. Import data before training "
+                "(reference DataSource error path)."
+            )
+
+
+class RecommendationPreparator(Preparator):
+    def prepare(self, ctx, td: TrainingData) -> Ratings:
+        return td.ratings
+
+
 class ALSAlgorithm(Algorithm):
     params_class = AlgorithmParams
     query_class = Query
 
-    def train(self, ctx, ratings) -> ALSModel:
-        raise NotImplementedError(
-            "ALS training is not ported yet; build the model with "
-            "predictionio_tpu_torch.convert.als_model_from_numpy")
+    def als_config(self) -> ALSConfig:
+        """The exact ALSConfig ``train`` uses."""
+        return ALSConfig(
+            rank=self.params.rank,
+            iterations=self.params.num_iterations,
+            lambda_=self.params.lambda_,
+            seed=self.params.seed,
+        )
+
+    def train(self, ctx, ratings: Ratings) -> ALSModel:
+        return train_als(
+            ratings, self.als_config(), device=getattr(ctx, "device", None),
+            checkpointer=ctx.checkpointer("als"),
+            checkpoint_every=ctx.checkpoint_every,
+        )
 
     def predict(self, model: ALSModel, query: Query) -> PredictedResult:
         recs = model.recommend_products(query.user, query.num)
@@ -72,11 +108,12 @@ class ALSAlgorithm(Algorithm):
 
 
 def engine_factory() -> Engine:
-    """The serving engine. Its data source and preparator read the event
-    store, which comes with the storage slice; the maps stay empty."""
+    """The recommendation engine. Its data source reads the event store,
+    which comes with the storage slice; until then the data-source map is
+    empty and a caller registers its own."""
     return Engine(
         data_source_classes={},
-        preparator_classes={},
+        preparator_classes=RecommendationPreparator,
         algorithm_classes={"als": ALSAlgorithm},
         serving_classes=FirstServing,
     )

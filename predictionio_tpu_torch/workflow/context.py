@@ -2,15 +2,19 @@
 
 The port of ``predictionio_tpu/workflow/context.py``. Components receive
 this ``Context`` as the first argument of their work methods. It holds the
-workflow knobs that ``Engine.train`` reads (``WorkflowParams``) and the
-device the run trains on (``None`` means CUDA). The seed, the mesh, the
-checkpointer and the event store come to the port with the slices that
-read them.
+workflow knobs that ``Engine.train`` reads (``WorkflowParams``), the
+device the run trains on (``None`` means CUDA) and the mid-training
+checkpoint knobs (``checkpoint_dir``, ``checkpoint_every``), with
+``checkpointer(subdir)`` namespaced by the algorithm that ``Engine.train``
+is training (``current_algorithm``). Single-process: the sharded
+checkpointer, the seed, the mesh and the event store come to the port
+with the slices that read them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 
 __all__ = ["Context", "WorkflowParams"]
 
@@ -25,14 +29,38 @@ class WorkflowParams:
 
 
 class Context:
-    """Ambient run state: workflow knobs and device."""
+    """Ambient run state: workflow knobs, device and checkpoint knobs."""
 
     def __init__(self, workflow_params: WorkflowParams | None = None,
-                 device=None):
+                 device=None, *, checkpoint_dir: str | None = None,
+                 checkpoint_every: int = 0):
         self.workflow_params = workflow_params or WorkflowParams()
         #: where algorithms train: None means CUDA, "cpu" runs the plain
         #: PyTorch versions of the kernels
         self.device = device
+        #: mid-training checkpoint/resume knobs (workflow/checkpoint.py);
+        #: algorithms that support step-level resume read these
+        self.checkpoint_dir = checkpoint_dir
+        self.checkpoint_every = checkpoint_every
+        #: set by Engine.train around each algorithm's train() call —
+        #: namespaces per-algorithm state such as checkpoints
+        self.current_algorithm: str | None = None
+
+    def checkpointer(self, subdir: str = ""):
+        """TrainCheckpointer for this run, or None when checkpointing is
+        off (no ``checkpoint_dir``). The path is namespaced by the
+        algorithm currently training (Engine.train sets
+        ``current_algorithm``) so multiple algorithm entries never clobber
+        each other's steps."""
+        if not self.checkpoint_dir:
+            return None
+        from .checkpoint import TrainCheckpointer
+
+        d = Path(self.checkpoint_dir)
+        if self.current_algorithm:
+            d = d / self.current_algorithm.replace("/", "_")
+        d = d / subdir if subdir else d
+        return TrainCheckpointer(d)
 
     def __repr__(self) -> str:
         return f"Context(device={self.device!r})"
