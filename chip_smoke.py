@@ -6,7 +6,9 @@ no card is visible). It imports nothing of JAX or of ``predictionio_tpu``.
 1. Device: the card's name, ``nvidia-smi``'s name and power limit, and the
    time to build the kernels (``predictionio_tpu_torch/csrc/topk.cu`` and
    ``csrc/flash_attn.cu``, one ``nvcc`` each, in parallel) from the
-   checkout's sources.
+   checkout's sources, with the native host library
+   (``predictionio_tpu_torch/native/pio_native.cpp``, g++) built beside
+   them; the run fails if the library did not build.
 2. Kernel vs plain on the card: ``topk`` and ``topk_rows`` against their
    plain PyTorch versions (``topk_reference`` / ``topk_rows_reference``) on
    the ML-20M catalog (27,136 x 128 padded f32) for B in {1, 8, 64, 128}
@@ -97,7 +99,9 @@ no card is visible). It imports nothing of JAX or of ``predictionio_tpu``.
 
 7. ALS training. (a) Blocked WALS at the ML-20M shape: 20M ratings from
    ``synth_ml20m`` (a copy of bench.py's) over 138,493 users x 26,744
-   items at rank 64, λ 0.1, nothing cut; the data and layout seconds, then
+   items at rank 64, λ 0.1, nothing cut; the data seconds, the layout's
+   seconds on the native host library and on the numpy path (the library
+   switched off in-process), the two layouts equal array for array, then
    two steps from the same state, which must be bitwise equal, one
    warm-up and 10 timed ``make_train_step`` iterations at float32, then
    at bfloat16 (iterations/s each), one profiled iteration split into
@@ -115,10 +119,27 @@ no card is visible). It imports nothing of JAX or of ``predictionio_tpu``.
    sequential and 48 concurrent HTTP queries, each answer equal to a host
    exact top-k, ``topk_rows`` launched.
 
+8. Events to answers: SQLite storage under a temp dir for metadata,
+   events and models; the reference's e2e quickstart shape
+   (``bench.py:686-760``): 200,000 ``rate`` events over 5,000 users x
+   2,000 items in steps of 0.5, plus 10,000 ``buy`` events, written with
+   ``insert_batch``; ``run_train`` with the template's own
+   ``templates/recommendation/engine.json`` (rank 10, 10 iterations, λ
+   0.01, seed 3, no init hook), twice, the two blobs' factors bitwise
+   equal; ``EngineServer`` built from the newest COMPLETED instance behind
+   ``serve()``: 16 sequential queries, each against a host exact top-N of
+   the stored factors, ``topk_rows`` launched; a retrain (seed 4) and
+   ``GET /reload`` switches the served instance; a third (seed 5) whose
+   blob is then corrupted in the models table is skipped by the next
+   ``/reload`` while serving goes on; device memory after the third
+   reload within one bundle's bytes of its value after the first. Stage
+   seconds (insert, find_frame, layout, iterations, persist, deploy, first
+   answer) print beside the card's name and power limit.
+
 The ALS path (phase 3), the seqrec serving path (phase 5), the seqrec
-training path (phase 6 b and c) and the trained ALS model's serving path
-(phase 7e) are each driven with every launch count set to 0 just before
-and read just after. Before the last line it prints one
+training path (phase 6 b and c), the trained ALS model's serving path
+(phase 7e) and the storage-deployed path (phase 8) are each driven with
+every launch count set to 0 just before and read just after. Before the last line it prints one
 JSON object with a record per kernel entry point (launches on its main
 path, error, times and bound); the last line is
 ``{"ok": true, "device": {...}}``.
@@ -128,16 +149,24 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import hashlib
 import json
+import os
+import sqlite3
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 import urllib.request
+from datetime import datetime, timedelta, timezone
 
 import numpy as np
 import torch
 
+from predictionio_tpu_torch import native
+from predictionio_tpu_torch import storage as pio_storage
 from predictionio_tpu_torch.controller import (DataSource, EngineParams,
                                                FirstServing, TrainResult)
 from predictionio_tpu_torch.convert import (als_model_from_numpy,
@@ -164,8 +193,10 @@ from predictionio_tpu_torch.storage.frame import Ratings
 from predictionio_tpu_torch.templates.recommendation.engine import (
     ALSAlgorithm, AlgorithmParams, TrainingData, engine_factory)
 from predictionio_tpu_torch.templates.seqrec import engine as seqrec_engine
+from predictionio_tpu_torch.workflow import core_workflow
 from predictionio_tpu_torch.workflow.context import Context
 from predictionio_tpu_torch.workflow.create_server import EngineServer, serve
+from predictionio_tpu_torch.workflow.serialization import deserialize_models
 
 SEED = 20
 RTOL = ATOL = 1e-5
@@ -1384,6 +1415,74 @@ def als_ratings(users, items, vals, n_users: int, n_items: int) -> Ratings:
         item_ids=BiMap({f"i{j}": j for j in range(n_items)}))
 
 
+def layout_digest(lay) -> str:
+    """One sha256 over every array and scalar of one side of a bilinear
+    layout: two sides with equal digests are equal array for array."""
+    h = hashlib.sha256()
+
+    def put(x) -> None:
+        if isinstance(x, np.ndarray):
+            h.update(f"{x.dtype}{x.shape}".encode())
+            h.update(np.ascontiguousarray(x))
+        else:
+            h.update(repr(x).encode())
+
+    put((lay.slots, lay.zero_slot, len(lay.buckets), len(lay.metas)))
+    put(lay.pos)
+    for b in lay.buckets:
+        put((b.num_rows, b.max_degree, b.dropped))
+        put(b.ids)
+        put(b.vals)
+    for m in lay.metas:
+        put((m.span, m.seg is None))
+        if m.seg is not None:
+            put(m.seg)
+    return h.hexdigest()
+
+
+def ml20m_layout(n_ratings: int, n_users: int, n_items: int, rank: int):
+    """Phase 7's synthetic ML-20M ratings, their bilinear layout (both
+    sides) and the seconds the layout alone took."""
+    users, items, vals = synth_ml20m(n_ratings, seed=0, n_users=n_users,
+                                     n_items=n_items)
+    cfg = ALSConfig(rank=rank, lambda_=ALS_LAMBDA)
+    t0 = time.perf_counter()
+    lay = build_bilinear_layout(
+        users, items, vals, n_users, n_items, tiers=cfg.tiers,
+        gather_budget=cfg.gather_budget, seed=cfg.seed,
+        chunk_cap=cfg.chunk_cap)
+    return (users, items, vals), lay, time.perf_counter() - t0
+
+
+def numpy_layout_child() -> None:
+    """Phase 7a's numpy layout, run in a process started with
+    ``PIO_NO_NATIVE=1`` (every call site then takes its numpy path): prints
+    one JSON line with the layout's seconds and both sides' digests."""
+    n_ratings, n_users, n_items, rank = json.loads(sys.argv[1])
+    _, lay, secs = ml20m_layout(n_ratings, n_users, n_items, rank)
+    print(json.dumps({"native": native.available(), "layout_s": secs,
+                      "digests": [layout_digest(side) for side in lay]}))
+
+
+def numpy_layout(n_ratings: int, n_users: int, n_items: int,
+                 rank: int) -> dict:
+    """``numpy_layout_child`` in a fresh interpreter with the native
+    library switched off by ``PIO_NO_NATIVE=1``."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         "import chip_smoke; chip_smoke.numpy_layout_child()",
+         json.dumps([n_ratings, n_users, n_items, rank])],
+        cwd=here, env={**os.environ, "PIO_NO_NATIVE": "1"},
+        capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0,
+          f"the numpy layout process failed:\n{proc.stderr[-4000:]}")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(got["native"] is False,
+          "PIO_NO_NATIVE=1 did not switch the native library off")
+    return got
+
+
 def sync(dev) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -1573,8 +1672,8 @@ def accuracy_gate(dev, *, n: int = 200_000, seed: int = 3, rank: int = RANK,
 
 
 class MemoryRatings(DataSource):
-    """An in-memory data source of the phase's ratings (the event store
-    comes with the storage slice)."""
+    """An in-memory data source of the phase's 20M ratings (phase 8 reads
+    the event store, at the quickstart's size)."""
 
     ratings: Ratings | None = None
 
@@ -1591,17 +1690,24 @@ def phase_als_train(dev, *, n_ratings=N_RATINGS, n_users=N_USERS,
     and served. Every check raises on failure."""
     out: dict = {"n_ratings": n_ratings, "users": n_users, "items": n_items,
                  "rank": rank, "lambda": ALS_LAMBDA}
+    # the layout on the native host library (what training runs), then on
+    # the numpy path in a process with the library switched off: equal
+    # array for array
+    check(native.available(), "the native host library did not build")
     t0 = time.perf_counter()
-    users, items, vals = synth_ml20m(n_ratings, seed=0, n_users=n_users,
-                                     n_items=n_items)
-    out["data_s"] = time.perf_counter() - t0
+    (users, items, vals), (u_lay, i_lay), out["layout_s"] = ml20m_layout(
+        n_ratings, n_users, n_items, rank)
+    out["data_s"] = time.perf_counter() - t0 - out["layout_s"]
     cfg = ALSConfig(rank=rank, lambda_=ALS_LAMBDA)
-    t0 = time.perf_counter()
-    u_lay, i_lay = build_bilinear_layout(
-        users, items, vals, n_users, n_items, tiers=cfg.tiers,
-        gather_budget=cfg.gather_budget, seed=cfg.seed,
-        chunk_cap=cfg.chunk_cap)
-    out["layout_s"] = time.perf_counter() - t0
+    np_run = numpy_layout(n_ratings, n_users, n_items, rank)
+    out["layout_numpy_s"] = np_run["layout_s"]
+    for side, lay, digest in (("users", u_lay, np_run["digests"][0]),
+                              ("items", i_lay, np_run["digests"][1])):
+        check(layout_digest(lay) == digest,
+              f"the native and numpy {side} layouts differ")
+    print(f"[als-train] layout at {n_ratings:,} ratings: native "
+          f"{out['layout_s']:.3f} s, numpy {out['layout_numpy_s']:.3f} s, "
+          f"equal array for array", flush=True)
     out["layout"] = {"users": layout_stats(u_lay), "items": layout_stats(i_lay)}
     rng = np.random.default_rng(SEED)
     u0 = (np.abs(rng.standard_normal((n_users, rank))) / np.sqrt(rank)
@@ -1747,6 +1853,278 @@ def phase_als_train(dev, *, n_ratings=N_RATINGS, n_users=N_USERS,
     return out
 
 
+# -- phase 8: events to answers -----------------------------------------
+
+#: the reference's e2e quickstart shape (bench.py:686-760): 200,000 rate
+#: events over 5,000 users x 2,000 items, ratings in steps of 0.5; plus
+#: 10,000 buy events (rating 4 through the data source's rating_of)
+QS_USERS, QS_ITEMS, QS_RATES, QS_BUYS = 5_000, 2_000, 200_000, 10_000
+QS_APP = "chipsmoke"
+ENGINE_JSON = "templates/recommendation/engine.json"
+
+
+def quickstart_events(seed: int, n_users=QS_USERS, n_items=QS_ITEMS,
+                      n_rates=QS_RATES, n_buys=QS_BUYS) -> list:
+    rng = np.random.default_rng(seed)
+    n = n_rates + n_buys
+    users = rng.integers(0, n_users, n)
+    items = rng.integers(0, n_items, n)
+    vals = np.round(rng.random(n_rates) * 9 + 1) / 2
+    t0 = datetime(2020, 1, 1, tzinfo=timezone.utc)
+    Event, DataMap = pio_storage.Event, pio_storage.DataMap
+    return [Event(event="rate" if k < n_rates else "buy",
+                  entity_type="user", entity_id=f"u{users[k]}",
+                  target_entity_type="item", target_entity_id=f"i{items[k]}",
+                  properties=DataMap({"rating": float(vals[k])}
+                                     if k < n_rates else {}),
+                  event_time=t0 + timedelta(seconds=k))
+            for k in range(n)]
+
+
+def stored_model(iid: str):
+    """The ALS model of an instance's stored blob, on the host."""
+    blob = pio_storage.Storage.get_models().get(iid)
+    return deserialize_models(blob.models)[0]
+
+
+def stored_check(body: dict, query: dict, model) -> None:
+    """One answer against a host exact top-N of the stored factors
+    (phase 3's check and tolerance)."""
+    got = body["itemScores"]
+    row = model.user_ids.get(query["user"])
+    if row is None:
+        check(got == [], f"unknown user {query['user']} got items")
+        return
+    scores = model.item_factors @ model.user_factors[row]
+    want = np.argsort(-scores, kind="stable")[: query["num"]]
+    check(len(got) == len(want),
+          f"{query['user']}: {len(got)} items, want {len(want)}")
+    gs = np.array([g["score"] for g in got], np.float32)
+    gi = np.array([model.item_ids[g["item"]] for g in got])
+    check(np.allclose(gs, scores[want], rtol=RTOL, atol=1e-6),
+          f"{query['user']}: scores differ from the stored factors' top-N")
+    check(np.allclose(scores[gi], gs, rtol=RTOL, atol=1e-6),
+          f"{query['user']}: an item's stored score differs from its "
+          "served score")
+
+
+def get_json(url: str) -> dict:
+    with urllib.request.urlopen(url, timeout=300) as resp:
+        return json.loads(resp.read())
+
+
+def bundle_bytes(server) -> int:
+    """Device bytes the served bundle's retriever and pipeline hold."""
+    total = 0
+    for model in server.deployed.result.models:
+        for attr in ("_retriever", "_pipeline"):
+            obj = getattr(model, attr, None)
+            for t in vars(obj).values() if obj is not None else ():
+                if isinstance(t, torch.Tensor) and t.device.type != "cpu":
+                    total += t.numel() * t.element_size()
+    return total
+
+
+def device_memory(dev) -> int:
+    if dev.type != "cuda":
+        return 0
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def phase_events_to_answers(dev, *, seed=SEED, n_seq=16, n_users=QS_USERS,
+                            n_items=QS_ITEMS, n_rates=QS_RATES,
+                            n_buys=QS_BUYS) -> dict:
+    """The recommendation template from the event store: SQLite storage
+    under a temp dir, the quickstart's events written with
+    ``insert_batch``, ``run_train`` with the template's own engine.json
+    (no init hook), a server built from the newest COMPLETED instance and
+    served over HTTP; then retrains, ``GET /reload``, and a corrupt
+    newest blob skipped while serving goes on. Every check raises."""
+    out: dict = {"users": n_users, "items": n_items, "rates": n_rates,
+                 "buys": n_buys}
+    home = tempfile.mkdtemp(prefix="pio-chip-smoke-")
+    os.environ["PIO_HOME"] = home
+    Storage = pio_storage.Storage
+    Storage.reset()
+    for repo, name in (("METADATA", "meta"), ("EVENTDATA", "events"),
+                       ("MODELDATA", "models")):
+        Storage.configure(repo, "sqlite", path=os.path.join(home,
+                                                            f"{name}.db"))
+    app = Storage.get_metadata().app_insert(QS_APP)
+    Storage.get_events().init_app(app.id)
+    events = quickstart_events(seed, n_users, n_items, n_rates, n_buys)
+    t0 = time.perf_counter()
+    Storage.get_events().insert_batch(events, app.id)
+    out["insert_s"] = time.perf_counter() - t0
+    del events
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           ENGINE_JSON)) as fh:
+        variant = json.load(fh)
+    variant["datasource"]["params"]["app_name"] = QS_APP
+    engine = engine_factory()
+    store = Context(device=dev).event_store()
+    t0 = time.perf_counter()
+    frame = store.find_frame(app_name=QS_APP, entity_type="user",
+                             event_names=("rate", "buy"),
+                             target_entity_type="item")
+    out["find_frame_s"] = time.perf_counter() - t0
+    check(len(frame) == n_rates + n_buys,
+          f"find_frame read {len(frame)} events")
+    del frame
+
+    # train_als's layout and each of its steps timed where it calls them
+    # (a step between two syncs of the card)
+    layout_s: list = []
+    step_s: list = []
+    real_layout, real_step = als.build_bilinear_layout, als.make_train_step
+
+    def timed_layout(*a, **kw):
+        t = time.perf_counter()
+        lay = real_layout(*a, **kw)
+        layout_s.append(time.perf_counter() - t)
+        return lay
+
+    def timed_step_factory(*a, **kw):
+        step = real_step(*a, **kw)
+
+        def timed_step(*sa):
+            sync(dev)
+            t = time.perf_counter()
+            res = step(*sa)
+            sync(dev)
+            step_s.append(time.perf_counter() - t)
+            return res
+        return timed_step
+
+    def train(seed_override=None) -> tuple[str, dict]:
+        v = json.loads(json.dumps(variant))
+        if seed_override is not None:
+            v["algorithms"][0]["params"]["seed"] = seed_override
+        ctx = Context(device=dev, mode="Train")
+        step_s.clear()
+        als.build_bilinear_layout = timed_layout
+        als.make_train_step = timed_step_factory
+        try:
+            t = time.perf_counter()
+            iid = core_workflow.run_train(engine,
+                                          engine.engine_params_from_json(v),
+                                          ctx)
+            wall = time.perf_counter() - t
+        finally:
+            als.build_bilinear_layout = real_layout
+            als.make_train_step = real_step
+        phases = dict(ctx.phase_times)
+        train_s = sum(dt for p, dt in phases.items() if p.startswith("train["))
+        check(len(step_s) == int(v["algorithms"][0]["params"]
+                                 ["num_iterations"]),
+              f"train_als ran {len(step_s)} steps")
+        return iid, {"wall_s": wall,
+                     "read_s": phases["datasource.read_training"],
+                     "layout_s": layout_s[-1],
+                     "iterations_s": sum(step_s),
+                     # the seeded init draws, the upload and the sampler
+                     "train_other_s": train_s - layout_s[-1] - sum(step_s),
+                     "persist_s": wall - sum(phases.values())}
+
+    iid, stages = train()
+    meta = Storage.get_metadata()
+    inst = meta.engine_instance_get(iid)
+    check(inst is not None and inst.status == "COMPLETED",
+          "run_train did not complete")
+    out["train"] = stages
+    model = stored_model(iid)
+    check(model.item_factors.shape[1] == 10
+          and np.isfinite(model.user_factors).all()
+          and np.isfinite(model.item_factors).all(),
+          "the stored factors are not finite [rows, 10]")
+
+    # the same events trained twice: bitwise-equal factors
+    again, _ = train()
+    twin = stored_model(again)
+    check(np.array_equal(model.user_factors, twin.user_factors)
+          and np.array_equal(model.item_factors, twin.item_factors),
+          "two trainings of the same events differ")
+    out["retrain_bitwise"] = True
+    del twin
+
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    reset_launches()
+    base_mem = device_memory(dev)
+    t0 = time.perf_counter()
+    latest = meta.engine_instance_get_latest_completed(
+        inst.engine_id, inst.engine_version, inst.engine_variant)
+    server = EngineServer(engine, latest, device=dev)
+    out["deploy_s"] = time.perf_counter() - t0
+    out["bundle_bytes"] = bundle_bytes(server)
+    check(server.engine_instance_id == again,
+          f"deployed {server.engine_instance_id}, not the newest {again}")
+    rng = np.random.default_rng(seed + 8)
+    with serve(server, "127.0.0.1", 0) as front:
+        base = f"http://127.0.0.1:{front.port}"
+        url = base + "/queries.json"
+        queries = [{"user": f"u{int(rng.integers(0, n_users))}",
+                    "num": int(rng.choice([1, 4, 10, 20]))}
+                   for _ in range(n_seq - 1)] + [{"user": "nobody", "num": 4}]
+        walls = []
+        for q in queries:
+            body, wall = post(url, q)
+            stored_check(body, q, model)
+            walls.append(wall)
+        out["first_answer_s"] = walls[0]
+        out["p50_ms"] = statistics.median(walls) * 1e3
+        launches = dict(kernels.LAUNCHES)
+        check(launches["topk_rows"] > 0,
+              f"topk_rows never launched on the storage-deployed path: "
+              f"{launches}")
+        out["launches"] = launches
+
+        # reload 1: a retrain with seed 4 becomes the served instance
+        newer, _ = train(4)
+        body = get_json(base + "/reload")
+        check(body.get("engineInstanceId") == newer,
+              f"/reload answered {body}, not {newer}")
+        check(get_json(base + "/")["engineInstanceId"] == newer,
+              "status does not show the reloaded instance")
+        newer_model = stored_model(newer)
+        body, _ = post(url, queries[0])
+        stored_check(body, queries[0], newer_model)
+        mem_after_first = device_memory(dev)
+
+        # reload 2: the newest blob is corrupt; serving stays on `newer`
+        bad, _ = train(5)
+        conn = sqlite3.connect(os.path.join(home, "models.db"))
+        conn.execute("UPDATE models SET blob = ? WHERE id = ?",
+                     (b"\x80\x05corrupt", bad))
+        conn.commit()
+        conn.close()
+        body = get_json(base + "/reload")
+        check(body.get("engineInstanceId") == newer,
+              f"/reload after a corrupt blob answered {body}")
+        status = get_json(base + "/")
+        check(status["engineInstanceId"] == newer
+              and [s["engineInstanceId"] for s in status["deploySkips"]]
+              == [bad], f"the corrupt blob was not skipped: {status}")
+        body, _ = post(url, queries[1])
+        stored_check(body, queries[1], newer_model)
+
+        # reload 3: the same walk again; device memory stays put
+        get_json(base + "/reload")
+        mem_after_third = device_memory(dev)
+    check(abs(mem_after_third - mem_after_first) <= out["bundle_bytes"],
+          f"device memory moved {mem_after_third - mem_after_first} bytes "
+          f"over reloads (a bundle holds {out['bundle_bytes']})")
+    out["device_mem"] = {"before_deploy": base_mem,
+                         "after_reload_1": mem_after_first,
+                         "after_reload_3": mem_after_third}
+    out["skips"] = status["deploySkips"]
+    del server
+    Storage.reset()
+    return out
+
+
 # -- main ---------------------------------------------------------------
 
 
@@ -1786,11 +2164,24 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
+    # the native host library (g++) builds while nvcc builds the kernels
+    native_s: list = []
+
+    def build_native() -> None:
+        t = time.perf_counter()
+        native.available()
+        native_s.append(time.perf_counter() - t)
+
+    native_build = threading.Thread(target=build_native)
     t0 = time.perf_counter()
+    native_build.start()
     kernels.build()
     build_s = time.perf_counter() - t0
+    native_build.join()
+    check(native.available(), "the native host library did not build")
     print(f"[device] {name} | nvidia-smi: {smi} | kernel build "
-          f"{build_s:.2f} s | torch {torch.__version__} cuda "
+          f"{build_s:.2f} s, native host library {native_s[0]:.2f} s "
+          f"beside it | torch {torch.__version__} cuda "
           f"{torch.version.cuda}", flush=True)
     print(smi, flush=True)
 
@@ -1880,6 +2271,21 @@ def main() -> int:
     als_train["card"] = smi
     print("[als-train] " + json.dumps(als_train), flush=True)
     clock.lap("7 ALS training")
+
+    # the recommendation path from the event store: run_train to a stored
+    # blob, then deployed and served from storage, counted from zero
+    # (phase_events_to_answers resets the launch counts before it deploys)
+    e2e = phase_events_to_answers(dev)
+    e2e["card"] = smi
+    print("[events] stage seconds: " + json.dumps({
+        "insert": e2e["insert_s"], "find_frame": e2e["find_frame_s"],
+        "layout": e2e["train"]["layout_s"],
+        "iterations": e2e["train"]["iterations_s"],
+        "train_other": e2e["train"]["train_other_s"],
+        "persist": e2e["train"]["persist_s"], "deploy": e2e["deploy_s"],
+        "first_answer": e2e["first_answer_s"]}) + f" | {smi}", flush=True)
+    print("[events] " + json.dumps(e2e), flush=True)
+    clock.lap("8 events to answers")
 
     by_case = {r["case"]: r for r in recs}
     by_attn = {r["case"]: r for r in attn}

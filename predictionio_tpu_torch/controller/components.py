@@ -18,9 +18,8 @@ Every component takes its params object in ``__init__`` (the reference's
 workflow ``Context`` (mesh, rng, workflow params — the SparkContext analog)
 as the first argument of its work methods.
 
-Copied from ``predictionio_tpu/controller/components.py``, without
-``LocalFileSystemPersistentModel``, which pickles under the storage home
-and comes with the storage slice.
+Copied from ``predictionio_tpu/controller/components.py``; the port
+imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -149,6 +148,41 @@ class PersistentModel(abc.ABC):
     @abc.abstractmethod
     def load(cls, instance_id: str, params: Any, ctx) -> "PersistentModel":
         ...
+
+
+class LocalFileSystemPersistentModel(PersistentModel):
+    """Pickle-to-disk PersistentModel helper (reference: controller/
+    LocalFileSystemPersistentModel.scala saves via the local FS; here the
+    path is ``$PIO_HOME/pmodels/<class>-<instance_id>.pkl``).
+
+    Trust model: ``load`` unpickles, and unpickling executes code — the
+    same assumption the reference makes Kryo-deserializing MODELDATA
+    blobs (CreateServer.scala:61-75): the model store is as trusted as
+    the code deploying it. The pmodels directory is created 0o700 so
+    other local users cannot plant a model file; do not point PIO_HOME at
+    storage writable by less-trusted principals."""
+
+    @classmethod
+    def _path(cls, instance_id: str):
+        from ..storage.registry import Storage
+
+        d = Storage.home() / "pmodels"
+        d.mkdir(parents=True, exist_ok=True, mode=0o700)
+        return d / f"{cls.__name__}-{instance_id}.pkl"
+
+    def save(self, instance_id: str, params: Any) -> bool:
+        import pickle
+
+        with open(self._path(instance_id), "wb") as f:
+            pickle.dump(self, f)
+        return True
+
+    @classmethod
+    def load(cls, instance_id: str, params: Any, ctx) -> "LocalFileSystemPersistentModel":
+        import pickle
+
+        with open(cls._path(instance_id), "rb") as f:
+            return pickle.load(f)
 
 
 class CustomQuerySerializer:

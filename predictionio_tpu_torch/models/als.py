@@ -47,12 +47,12 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-import math
 import time
 
 import numpy as np
 import torch
 
+from .. import prng
 from ..device import resolve_device
 from ..obs.metrics import METRICS
 from ..obs.training import TRAINING
@@ -733,10 +733,9 @@ def train_als(ratings: Ratings, config: ALSConfig, *, device=None,
     ``init=(u0, v0)`` gives the starting factors as true-row-order arrays
     ([num_users, R], [num_items, R]); the first half-step solves u from
     v0, and u0 only seeds its CG warm start. Without ``init`` both are
-    drawn as ``|N(0, 1)| / sqrt(rank)`` from a ``torch.Generator`` seeded
-    with ``config.seed`` — the reference's scheme, but not its numbers:
-    ``jax.random`` cannot be reproduced in torch, so parity with the
-    reference goes through ``init``.
+    drawn as the reference draws them: ``k_u, k_v = split(PRNGKey(seed))``
+    and ``|normal(k, (rows, rank))| / sqrt(rank)`` in true row order,
+    through ``predictionio_tpu_torch.prng`` (jax's numbers, bit for bit).
 
     With a ``TrainCheckpointer`` and ``checkpoint_every > 0``, both factor
     matrices (true row order), the iteration counter and a fingerprint of
@@ -830,9 +829,9 @@ def train_als(ratings: Ratings, config: ALSConfig, *, device=None,
         else:
             # MLlib-style init: small positive factors (true rows only —
             # the layout's padding slots must stay exactly zero)
-            gen = torch.Generator().manual_seed(int(config.seed))
-            v0 = torch.randn((ni, rank), generator=gen).abs() / math.sqrt(rank)
-            u0 = torch.randn((nu, rank), generator=gen).abs() / math.sqrt(rank)
+            k_u, k_v = prng.split(prng.PRNGKey(config.seed))
+            v0 = np.abs(prng.normal(k_v, (ni, rank))) / np.sqrt(rank)
+            u0 = np.abs(prng.normal(k_u, (nu, rank))) / np.sqrt(rank)
         v = to_slots(v0, i_lay, dev)
         # the user side's init only seeds the first sweep's CG warm start
         # (the first half-step solves u from v). Kept apart from

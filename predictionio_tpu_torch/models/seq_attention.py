@@ -31,6 +31,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import prng
 from ..device import resolve_device
 from ..parallel.ring_attention import flash_attention
 from ..storage.bimap import BiMap
@@ -252,40 +253,43 @@ class SeqRec(nn.Module):
 
 
 def init_params(n_items: int, cfg: SeqRecConfig, seed: int) -> dict:
-    """A flax-named parameter tree (numpy f32 leaves) drawn from a seeded
-    numpy generator at flax's init scales: normal(0.02) item embeddings
-    and positions, LayerNorm scale 1 / bias 0, Dense kernels lecun-normal
-    (a normal truncated at two standard deviations, variance 1 / fan_in)
-    and zero biases. Not ``jax.random``'s numbers: the same seed gives
-    other weights than the JAX trainer's init."""
-    rng = np.random.default_rng(seed)
+    """The reference trainer's initial weights, as a flax-named parameter
+    tree (numpy f32 leaves): ``model.init(kinit, ...)`` with ``kinit`` the
+    first half of ``split(PRNGKey(seed))``, drawn through
+    ``predictionio_tpu_torch.prng``. Each parameter's key is flax's: the
+    init key with the module path and the scope's parameter counter
+    folded in (``fold_in_static``). Item embeddings and positions are
+    ``normal * 0.02``, Dense kernels lecun-normal (a normal truncated at
+    ±2, scaled to variance 1 / fan_in), biases and LayerNorm biases 0,
+    LayerNorm scales 1."""
+    kinit = prng.split(prng.PRNGKey(seed))[0]
     dim = cfg.embed_dim
 
-    def normal(shape, std):
-        return (rng.standard_normal(shape, np.float32) * std).astype(
-            np.float32)
+    def key(*path) -> np.ndarray:
+        # flax's make_rng in the scope at ``path``: every random parameter
+        # here is its scope's first, so its counter is 1
+        return prng.fold_in_static(kinit, (*path, 1))
 
-    def lecun(d_in, d_out):
-        x = rng.standard_normal((d_in, d_out), np.float32)
-        out = np.abs(x) > 2
-        while out.any():  # redraw outside [-2, 2]
-            x[out] = rng.standard_normal(int(out.sum()), np.float32)
-            out = np.abs(x) > 2
-        # 0.8796...: the std of a unit normal truncated at +-2
-        return (x * (np.sqrt(1.0 / d_in) / 0.87962566103423978)).astype(
-            np.float32)
+    def dense(d_in, d_out, *path):
+        # jax.nn.initializers.lecun_normal: 0.8796... is the std of a
+        # unit normal truncated at ±2
+        std = (np.sqrt(np.float32(1.0 / d_in))
+               / np.float32(0.87962566103423978))
+        kernel = prng.truncated_normal(key(*path), -2, 2, (d_in, d_out)) * std
+        return {"kernel": kernel, "bias": np.zeros(d_out, np.float32)}
 
     def ln():
         return {"scale": np.ones(dim, np.float32),
                 "bias": np.zeros(dim, np.float32)}
 
-    p: dict = {"item_embed": {"embedding": normal((n_items + 1, dim), 0.02)},
-               "pos": normal((cfg.max_len, dim), 0.02)}
+    std = np.float32(0.02)
+    p: dict = {"item_embed": {"embedding": prng.normal(
+                   key("item_embed"), (n_items + 1, dim)) * std},
+               "pos": prng.normal(key(), (cfg.max_len, dim)) * std}
     widths = ((dim, 3 * dim), (dim, dim), (dim, 2 * dim), (2 * dim, dim))
     for i in range(cfg.num_blocks):
         p[f"Block_{i}"] = {"LayerNorm_0": ln(), "LayerNorm_1": ln()} | {
-            f"Dense_{j}": {"kernel": lecun(a, b),
-                           "bias": np.zeros(b, np.float32)}
+            f"Dense_{j}": dense(a, b, f"Block_{i}", f"Dense_{j}")
             for j, (a, b) in enumerate(widths)}
     p["LayerNorm_0"] = ln()
     return {"params": p}
@@ -435,14 +439,14 @@ def train_seq_rec(seqs: np.ndarray, user_ids: BiMap, item_ids: BiMap,
     """Next-item prediction over left-padded histories ``seqs [users,
     max_len]`` on one device (``None`` means CUDA; raises without one). The
     port of the JAX trainer: weights from ``init_params`` (a flax-named
-    tree, default ``init_params(n_items, cfg, cfg.seed)``; the JAX trainer
-    draws its init with ``jax.random``, which torch cannot reproduce, so a
-    caller that wants its numbers passes that tree), ``torch.optim.Adam``
-    with optax.adam's defaults, the masked-mean next-item cross-entropy,
-    users with an empty history dropped, batches of ``min(batch_size,
-    users)`` with the tail batch wrapping, and every epoch reshuffled by a
-    ``torch.Generator`` seeded from ``cfg.seed`` and staged on the device
-    as one ``[n_batches, bs, max_len]`` tensor. ``seq_parallel`` changes
+    tree, default ``init_params(n_items, cfg, cfg.seed)``, the reference's
+    own init), ``torch.optim.Adam`` with optax.adam's defaults, the
+    masked-mean next-item cross-entropy, users with an empty history
+    dropped, batches of ``min(batch_size, users)`` with the tail batch
+    wrapping, and every epoch reshuffled as the reference shuffles (the
+    second half of ``split(PRNGKey(seed))``, split again each epoch, then
+    ``permutation``) and staged on the device as one ``[n_batches, bs,
+    max_len]`` tensor. ``seq_parallel`` changes
     nothing on one device. Returns a ``SeqRecModel`` with the trained
     flax-named ``params``, attached to the device."""
     dev = resolve_device(device)
@@ -457,9 +461,10 @@ def train_seq_rec(seqs: np.ndarray, user_ids: BiMap, item_ids: BiMap,
     n = len(active)
     bs = min(cfg.batch_size, max(1, n))
     n_batches = -(-n // bs)  # the tail batch wraps so no user is dropped
-    gen = torch.Generator().manual_seed(cfg.seed)
+    ep_key = prng.split(prng.PRNGKey(cfg.seed))[1]
     for _ep in range(cfg.epochs if n else 0):
-        order = torch.randperm(n, generator=gen).numpy()
+        ep_key, sub = prng.split(ep_key)  # reshuffle every epoch
+        order = prng.permutation(sub, n)
         idx = order[np.arange(n_batches * bs) % n]
         batches = torch.from_numpy(
             seqs[active[idx]].reshape(n_batches, bs, -1)).to(dev)

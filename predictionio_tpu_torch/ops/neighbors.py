@@ -1,11 +1,10 @@
 """Host-side layout: COO ratings -> fixed-shape padded neighbor blocks.
 
-Copied from ``predictionio_tpu/ops/neighbors.py`` with its numpy paths
-only: ``splitmix64_np`` is copied in from ``predictionio_tpu/native``, the
-native counting sort becomes ``np.argsort(kind="stable")`` and the block
-fill takes the file's own numpy fallback. The JAX package holds its
-native and numpy paths bit-identical, so this layout equals the
-reference's array for array. The host C++ comes to the port later.
+Copied from ``predictionio_tpu/ops/neighbors.py``. The entry sorts and
+the block fill run on the port's copy of the native host library
+(``predictionio_tpu_torch/native``) where it builds, and on numpy
+otherwise; the two paths are bit-identical, and the layout equals the
+reference's array for array.
 
 The ALS solver needs, for every user (resp. item), the list of rated
 items (resp. rating users) as FIXED-SHAPE arrays, so every block is one
@@ -34,23 +33,15 @@ import math
 
 import numpy as np
 
+from .. import native
+
 
 __all__ = [
     "NeighborBlocks", "SideLayout", "TierMeta", "build_bilinear_layout",
     "build_neighbor_blocks", "geometric_tiers", "optimal_tiers",
 ]
 
-_M64 = np.uint64(0xFFFFFFFFFFFFFFFF)
-
-
-def _splitmix64(x: np.ndarray) -> np.ndarray:
-    """Vectorized splitmix64 (``predictionio_tpu/native/__init__.py``
-    ``splitmix64_np``): the degree-cap subsample's hash key."""
-    with np.errstate(over="ignore"):
-        x = (x + np.uint64(0x9E3779B97F4A7C15)) & _M64
-        x = ((x ^ (x >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)) & _M64
-        x = ((x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)) & _M64
-        return x ^ (x >> np.uint64(31))
+_splitmix64 = native.splitmix64_np
 
 
 @dataclasses.dataclass
@@ -303,9 +294,13 @@ def _plan_side(counts: np.ndarray, *, tiers, gather_budget: int,
 
 
 def _stable_argsort_bounded(keys: np.ndarray, key_max: int) -> np.ndarray:
-    """np.argsort(kind="stable") for non-negative bounded int keys (the
-    reference's numpy fallback of its native counting sort; the two are
-    bit-identical)."""
+    """np.argsort(kind="stable") for non-negative bounded int keys, via
+    the native parallel counting sort when available (bit-identical —
+    test_torch_native pins it). The entry-stream sorts are the layout
+    build's dominant host cost at 100M-rating scale."""
+    out = native.counting_argsort(keys, key_max)
+    if out is not None:
+        return out
     return np.argsort(keys, kind="stable")
 
 
@@ -327,7 +322,8 @@ def _build_side(plan: _SidePlan, rows, cols_slots, vals, *, zero_other: int,
     metas: list[TierMeta] = []
 
     # tier code per entry: 1..T = regular tier, 0 = chunked classes
-    # (int32, as the reference keeps it)
+    # (int32 so the native counting sort takes it without a 100M-entry
+    # cast copy)
     n_tiers = len(plan.tiers)
     tier_of_row = np.zeros(num_rows, np.int32)
     for t, (_tier_d, row_idx) in enumerate(plan.tiers):
@@ -479,14 +475,17 @@ def build_neighbor_blocks(
       of 8.
     - Rows with degree > D keep a deterministic hash-keyed subsample (the
       same trade MLlib users make with sampling heavy users); the key is
-      splitmix64(seed, row, pos), as in the reference.
+      splitmix64(seed, row, pos) so the native C++ path and the numpy
+      fallback produce identical layouts.
     - Rows padded to a multiple of ``block_rows``.
     - Padded id slots hold ``pad_id`` (the permuted layout points them at
       the other side's guaranteed-zero factor slot so consumers skip the
       [B, D, R]-wide validity mask; the default 0 keeps the standalone
       mask-deriving path working).
 
-    numpy sorts (the reference's fallback path).
+    Dispatches to the C++ counting-sort kernel
+    (predictionio_tpu_torch/native) when built; falls back to numpy sorts
+    otherwise.
     """
     # Exact-zero values are nudged to a tiny epsilon so that downstream
     # consumers may derive the validity mask as ``vals != 0`` (the padded
@@ -518,6 +517,23 @@ def build_neighbor_blocks(
 
     nb = max(1, math.ceil(num_rows / block_rows))
     padded_rows = nb * block_rows
+
+    nat = native.neighbor_blocks_native(
+        rows, cols, vals, num_rows, padded_rows, d, seed
+    ) if native.available() else None
+    if nat is not None:
+        ids, vv, _, dropped = nat
+        if pad_id:
+            # the C++ kernel zero-fills padding; vv==0 identifies exactly
+            # those slots (genuine zero ratings were nudged to 1e-30 above)
+            ids = np.where(vv == 0, np.int32(pad_id), ids)
+        return NeighborBlocks(
+            ids=ids.reshape(nb, block_rows, d),
+            vals=vv.reshape(nb, block_rows, d),
+            num_rows=num_rows,
+            max_degree=d,
+            dropped=dropped,
+        )
 
     order = np.argsort(rows, kind="stable")
     r_sorted = rows[order]

@@ -1,15 +1,14 @@
 """Recommendation engine template on the port.
 
-The port of ``templates/recommendation/engine.py``: the algorithm
-parameters, the query and result types, ``TrainingData``,
-``RecommendationPreparator``, ``ALSAlgorithm`` (``train`` runs blocked
-WALS through ``models/als.py::train_als`` on the context's device, with
-the context's checkpointer; ``predict`` and ``batch_predict`` serve the
-factors through the hand-written top-k kernel) and the engine factory.
-The data source reads the event store, which comes with the storage
-slice: until then a caller registers a ``DataSource`` of its own that
-returns ``TrainingData`` (``engine.data_source_classes``), or builds a
-model with ``convert.als_model_from_numpy``.
+The port of ``templates/recommendation/engine.py``: the parameters, the
+query and result types, ``TrainingData``, ``RecommendationDataSource``
+(``rate`` and ``buy`` events of the context's event store become
+``Ratings``), ``RecommendationPreparator``, ``ALSAlgorithm`` (``train``
+runs blocked WALS through ``models/als.py::train_als`` on the context's
+device, with the context's checkpointer; ``predict`` and
+``batch_predict`` serve the factors through the hand-written top-k
+kernel) and the engine factory. The evaluation half (``read_eval``, the
+metric and the params grid) comes with the evaluation slice.
 
 Query:  {"user": "u1", "num": 4}
 Result: {"itemScores": [{"item": "i1", "score": 3.2}, ...]}
@@ -19,10 +18,15 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-from ...controller import (Algorithm, Engine, FirstServing, Params,
-                           Preparator, SanityCheck)
+from ...controller import (Algorithm, DataSource, Engine, FirstServing,
+                           Params, Preparator, SanityCheck)
 from ...models.als import ALSConfig, ALSModel, train_als
 from ...storage.frame import Ratings
+
+
+@dataclass(frozen=True)
+class DataSourceParams(Params):
+    app_name: str = "MyApp"
 
 
 @dataclass(frozen=True)
@@ -62,6 +66,33 @@ class TrainingData(SanityCheck):
                 "No rate/buy events found. Import data before training "
                 "(reference DataSource error path)."
             )
+
+
+class RecommendationDataSource(DataSource):
+    """Reads rate (explicit rating property) and buy (implicit 4.0) events
+    (reference DataSource.scala:25-54)."""
+
+    params_class = DataSourceParams
+
+    def _ratings(self, ctx) -> Ratings:
+        store = ctx.event_store()
+        frame = store.find_frame(
+            app_name=self.params.app_name,
+            entity_type="user",
+            event_names=("rate", "buy"),
+            target_entity_type="item",
+        )
+
+        def rating_of(name, props):
+            if name == "rate":
+                v = props.get("rating")
+                return float(v) if v is not None else None
+            return 4.0  # "buy" treated as rating 4 (reference :45-49)
+
+        return frame.to_ratings(rating_of=rating_of)
+
+    def read_training(self, ctx) -> TrainingData:
+        return TrainingData(self._ratings(ctx))
 
 
 class RecommendationPreparator(Preparator):
@@ -108,11 +139,10 @@ class ALSAlgorithm(Algorithm):
 
 
 def engine_factory() -> Engine:
-    """The recommendation engine. Its data source reads the event store,
-    which comes with the storage slice; until then the data-source map is
-    empty and a caller registers its own."""
+    """The recommendation engine: events from the event store, blocked
+    WALS, top-k serving."""
     return Engine(
-        data_source_classes={},
+        data_source_classes=RecommendationDataSource,
         preparator_classes=RecommendationPreparator,
         algorithm_classes={"als": ALSAlgorithm},
         serving_classes=FirstServing,

@@ -1,15 +1,12 @@
 """Sequential recommendation engine template on the port.
 
-The port of ``templates/seqrec/engine.py``: the algorithm parameters, the
-query and result types, ``TrainingData``, ``SeqPreparator``,
+The port of ``templates/seqrec/engine.py``: the parameters, the query
+and result types, ``TrainingData``, ``SeqDataSource`` (user-item events
+of the context's event store, with their times), ``SeqPreparator``,
 ``SeqRecAlgorithm`` (``train`` builds each user's time-ordered history and
 trains the causal-attention model of ``models/seq_attention.py`` on the
 context's device; ``predict`` and ``batch_predict`` serve it through the
-hand-written flash-attention kernel) and the engine factory. The data
-source reads the event store, which comes with the storage slice: until
-then a caller registers a ``DataSource`` of its own that returns
-``TrainingData`` (``engine.data_source_classes``), or builds a model with
-``convert.seqrec_model_from_numpy``.
+hand-written flash-attention kernel) and the engine factory.
 
 Query:  {"user": "u1", "num": 4}
 Result: {"itemScores": [{"item": "i1", "score": 3.2}, ...]}
@@ -19,10 +16,18 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-from ...controller import (Algorithm, Engine, FirstServing, Params,
-                           Preparator, SanityCheck)
+import numpy as np
+
+from ...controller import (Algorithm, DataSource, Engine, FirstServing,
+                           Params, Preparator, SanityCheck)
 from ...models.seq_attention import (SeqRecConfig, SeqRecModel,
                                      build_sequences, train_seq_rec)
+
+
+@dataclass(frozen=True)
+class DataSourceParams(Params):
+    app_name: str = "MyApp"
+    event_names: tuple = ("view", "buy", "rate")
 
 
 @dataclass(frozen=True)
@@ -69,6 +74,24 @@ class TrainingData(SanityCheck):
             raise ValueError("No interaction events found; import data first.")
 
 
+class SeqDataSource(DataSource):
+    params_class = DataSourceParams
+
+    def read_training(self, ctx) -> TrainingData:
+        frame = ctx.event_store().find_frame(
+            app_name=self.params.app_name,
+            entity_type="user",
+            event_names=tuple(self.params.event_names),
+            target_entity_type="item",
+        )
+        has_target = np.asarray(
+            [t is not None for t in frame.target_entity_id], dtype=bool
+        )
+        frame = frame.select(has_target)
+        return TrainingData(frame.entity_id, frame.target_entity_id,
+                            frame.event_time)
+
+
 class SeqPreparator(Preparator):
     def prepare(self, ctx, td: TrainingData) -> TrainingData:
         return td
@@ -110,11 +133,10 @@ class SeqRecAlgorithm(Algorithm):
 
 
 def engine_factory() -> Engine:
-    """The seqrec engine. Its data source reads the event store, which comes
-    with the storage slice; until then the data-source map is empty and a
-    caller registers its own."""
+    """The seqrec engine: events from the event store, the causal-attention
+    model, top-k serving."""
     return Engine(
-        data_source_classes={},
+        data_source_classes=SeqDataSource,
         preparator_classes=SeqPreparator,
         algorithm_classes={"seqrec": SeqRecAlgorithm},
         serving_classes=FirstServing,

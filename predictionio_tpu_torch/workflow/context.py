@@ -3,12 +3,14 @@
 The port of ``predictionio_tpu/workflow/context.py``. Components receive
 this ``Context`` as the first argument of their work methods. It holds the
 workflow knobs that ``Engine.train`` reads (``WorkflowParams``), the
-device the run trains on (``None`` means CUDA) and the mid-training
-checkpoint knobs (``checkpoint_dir``, ``checkpoint_every``), with
-``checkpointer(subdir)`` namespaced by the algorithm that ``Engine.train``
-is training (``current_algorithm``). Single-process: the sharded
-checkpointer, the seed, the mesh and the event store come to the port
-with the slices that read them.
+run's mode and batch label, the device the run trains on (``None`` means
+CUDA), the mid-training checkpoint knobs (``checkpoint_dir``,
+``checkpoint_every``), with ``checkpointer(subdir)`` namespaced by the
+algorithm that ``Engine.train`` is training (``current_algorithm``), and
+the event-store binding that data sources read (``app_name``,
+``channel_name``, ``event_store()``). Single-process: the sharded
+checkpointer, the seed and the mesh come to the port with the slices that
+read them.
 """
 
 from __future__ import annotations
@@ -29,12 +31,20 @@ class WorkflowParams:
 
 
 class Context:
-    """Ambient run state: workflow knobs, device and checkpoint knobs."""
+    """Ambient run state: workflow knobs, device, checkpoint knobs and the
+    event-store binding."""
 
     def __init__(self, workflow_params: WorkflowParams | None = None,
-                 device=None, *, checkpoint_dir: str | None = None,
+                 device=None, *, mode: str = "", batch: str = "",
+                 app_name: str | None = None,
+                 channel_name: str | None = None,
+                 checkpoint_dir: str | None = None,
                  checkpoint_every: int = 0):
         self.workflow_params = workflow_params or WorkflowParams()
+        self.mode = mode
+        self.batch = batch
+        self.app_name = app_name
+        self.channel_name = channel_name
         #: where algorithms train: None means CUDA, "cpu" runs the plain
         #: PyTorch versions of the kernels
         self.device = device
@@ -62,5 +72,13 @@ class Context:
         d = d / subdir if subdir else d
         return TrainCheckpointer(d)
 
+    # -- event store access (PEventStore binding) ---------------------------
+    def event_store(self):
+        from ..store import EventStore
+
+        return EventStore(default_app_name=self.app_name,
+                          default_channel_name=self.channel_name)
+
     def __repr__(self) -> str:
-        return f"Context(device={self.device!r})"
+        return (f"Context(mode={self.mode!r}, batch={self.batch!r}, "
+                f"device={self.device!r})")

@@ -8,21 +8,28 @@ The port of ``predictionio_tpu/workflow/create_server.py``'s serving core:
   the batch lattice of both. A failed attach raises: the server never
   serves on the host in silence.
 - ``EngineServer`` serves single queries and micro-batches
-  (``serve_query`` / ``serve_query_batch``) through a ``MicroBatcher``.
+  (``serve_query`` / ``serve_query_batch``) through a ``MicroBatcher``. It
+  is built from a stored ``EngineInstance`` (``prepare_deploy``: the blob
+  checksum, then the fallback walk over older COMPLETED instances of the
+  same engine triple, whose skips land in ``deploy_skips``) or from an
+  in-memory ``(engine, TrainResult, instance_id)``. ``reload_latest()``
+  swaps a storage-backed server to the newest COMPLETED instance: the
+  fresh bundle is attached and prewarmed while the old one keeps serving,
+  then swapped in one reference assignment.
 - ``serve(server, host, port)`` is the HTTP front end on the standard
-  library: ``POST /queries.json``, ``GET /`` (status) and
-  ``GET /stats.json``. Handler threads submit to the batcher's asyncio
+  library: ``POST /queries.json``, ``GET /`` (status), ``GET /stats.json``
+  and ``GET /reload``. Handler threads submit to the batcher's asyncio
   loop, which runs on a background thread.
 
-Deploying a stored model blob (storage, checksum, fallback walk, reload)
-comes with the storage and CLI slice; a server is built here from an
-in-memory ``(engine, TrainResult, instance_id)``.
+``POST /reload/delta`` (streaming fold-in) comes with the streaming
+slice.
 """
 
 from __future__ import annotations
 
 import asyncio
 import dataclasses
+import gc
 import json
 import logging
 import threading
@@ -36,6 +43,9 @@ from ..controller.params import parse_params
 from ..device import resolve_device
 from ..obs.metrics import METRICS
 from ..ops import kernels
+from ..storage import EngineInstance, Storage
+from .context import Context
+from .core_workflow import prepare_deploy
 from .microbatch import DeadlineExceeded, DispatchTimeout, MicroBatcher, ServerBusy
 
 log = logging.getLogger("predictionio_tpu_torch.server")
@@ -74,14 +84,16 @@ def _to_jsonable(x: Any) -> Any:
 
 @dataclasses.dataclass
 class Deployed:
-    """One deployed engine instance on one device (the swap unit of a
-    future reload). ``prewarm_batch`` > 0 launches the kernel at deploy
-    for every pad bucket up to that batch ceiling."""
+    """One deployed engine instance on one device (the swap unit of
+    ``reload_latest``). ``prewarm_batch`` > 0 launches the kernel at
+    deploy for every pad bucket up to that batch ceiling. ``instance`` is
+    the stored record a storage-backed deploy came from."""
 
     instance_id: str
     result: TrainResult
     device: Any = None
     prewarm_batch: int = 0
+    instance: EngineInstance | None = None
     warmed: list = dataclasses.field(default_factory=list, init=False)
 
     def __post_init__(self):
@@ -136,15 +148,39 @@ class Deployed:
 
 class EngineServer:
     """Holds the deployed bundle + bookkeeping; the HTTP handlers delegate
-    here."""
+    here.
 
-    def __init__(self, engine: Engine, result: TrainResult, instance_id: str,
-                 *, device=None, batch_window_ms: float = 1.0,
+    ``source`` is a stored ``EngineInstance`` (its blob is rehydrated by
+    ``prepare_deploy``; a corrupt or unloadable blob makes the deploy walk
+    to the next-newest COMPLETED instance of the same engine triple, and
+    the first error is raised when none loads) or an in-memory
+    ``TrainResult`` served under ``instance_id``."""
+
+    def __init__(self, engine: Engine,
+                 source: EngineInstance | TrainResult,
+                 instance_id: str | None = None, *,
+                 ctx: Context | None = None, device=None,
+                 batch_window_ms: float = 1.0,
                  batch_max: int = 128, batch_inflight: int = 8):
         self.engine = engine
         self.batch_max = batch_max
-        self.deployed = Deployed(instance_id, result, device=device,
-                                 prewarm_batch=batch_max)
+        self.device = resolve_device(device)
+        self.ctx = ctx or Context(mode="Serving", device=self.device)
+        #: instances skipped by the most recent deploy/reload because
+        #: their blob was corrupt or unloadable (status() reports them)
+        self.deploy_skips: list[dict] = []
+        self._reload_lock = threading.Lock()  # serialize reloads
+        if isinstance(source, EngineInstance):
+            inst, result, self.deploy_skips = \
+                self._deploy_with_fallback(source)
+            self.deployed = Deployed(inst.id, result, device=self.device,
+                                     prewarm_batch=batch_max, instance=inst)
+        else:
+            if instance_id is None:
+                raise ValueError("an in-memory TrainResult needs an "
+                                 "instance_id")
+            self.deployed = Deployed(instance_id, source, device=self.device,
+                                     prewarm_batch=batch_max)
         self.start_time = datetime.now(timezone.utc)
         self.request_count = 0
         self.avg_serving_sec = 0.0
@@ -235,6 +271,80 @@ class EngineServer:
                 (dt / n - self.avg_serving_sec) * n / self.request_count)
         return outcomes
 
+    # -- deploy fallback (blob integrity / unloadable blobs) ---------------
+    def _deploy_with_fallback(self, first: EngineInstance):
+        """Try ``first``; when its blob is corrupt (ModelIntegrityError)
+        or unloadable, walk the next-newest COMPLETED instances of the
+        same engine triple. Returns (instance, TrainResult, skips);
+        re-raises the FIRST error when every candidate fails."""
+        candidates = [first]
+        try:
+            meta = Storage.get_metadata()
+            for c in meta.engine_instance_get_completed(
+                    first.engine_id, first.engine_version, first.engine_variant):
+                if all(c.id != x.id for x in candidates):
+                    candidates.append(c)
+        except Exception:  # metadata unreachable: just try `first`
+            log.exception("could not list fallback candidates")
+        skips: list[dict] = []
+        first_err: Exception | None = None
+        for cand in candidates:
+            try:
+                result = prepare_deploy(self.engine, cand, self.ctx)
+            except Exception as e:  # noqa: BLE001 — try the next-newest
+                if first_err is None:
+                    first_err = e
+                skips.append({"engineInstanceId": cand.id,
+                              "error": f"{type(e).__name__}: {e}"})
+                log.error(
+                    "deploy of engine instance %s failed (%s: %s); "
+                    "falling back to the next-newest COMPLETED instance",
+                    cand.id, type(e).__name__, e)
+                continue
+            if skips:
+                log.warning(
+                    "deployed engine instance %s after skipping %d "
+                    "corrupt/unloadable newer instance(s): %s",
+                    cand.id, len(skips),
+                    [s["engineInstanceId"] for s in skips])
+            return cand, result, skips
+        assert first_err is not None
+        raise first_err
+
+    # -- hot reload (MasterActor ReloadServer, :315-336) -------------------
+    def reload_latest(self) -> str:
+        """Swap to the newest COMPLETED instance of the served engine
+        triple (with the fallback walk); returns the instance id now
+        serving. The fresh bundle is attached and prewarmed before the
+        swap, so the old one answers every query until then; a failed
+        attach raises and leaves the old bundle serving."""
+        with self._reload_lock:
+            return self._reload_latest()
+
+    def _reload_latest(self) -> str:
+        inst = self.deployed.instance
+        if inst is None:
+            raise RuntimeError("reload needs a server deployed from storage "
+                               "(an EngineInstance), not a TrainResult")
+        latest = Storage.get_metadata().engine_instance_get_latest_completed(
+            inst.engine_id, inst.engine_version, inst.engine_variant)
+        if latest is None:
+            raise RuntimeError("no COMPLETED engine instance to reload")
+        # fallback walk: a corrupt newest blob must not take down a
+        # healthy server — the old bundle keeps serving while we try the
+        # next-newest COMPLETED instance
+        fresh_inst, result, skips = self._deploy_with_fallback(latest)
+        fresh = Deployed(fresh_inst.id, result, device=self.device,
+                         prewarm_batch=self.batch_max, instance=fresh_inst)
+        self.deployed = fresh  # atomic reference swap
+        self.deploy_skips = skips
+        # the old bundle's device tensors go with its last reference (a
+        # batch in flight on it holds one until it answers); a reference
+        # cycle through it would keep them until the collector runs
+        gc.collect()
+        log.info("Reloaded engine instance %s", fresh_inst.id)
+        return fresh_inst.id
+
     async def dispatch_query(self, query_json: dict):
         """The one query entry for the HTTP layer: the micro-batcher, or a
         worker thread when batching is disabled."""
@@ -243,9 +353,13 @@ class EngineServer:
         return await self.batcher.submit(query_json)
 
     def status(self) -> dict:
+        inst = self.deployed.instance
         return {
             "status": "alive",
             "engineInstanceId": self.engine_instance_id,
+            **({"engineVariant": inst.engine_variant,
+                "engineFactory": inst.engine_factory} if inst else {}),
+            "deploySkips": list(self.deploy_skips),
             "startTime": self.start_time.isoformat(),
             "requestCount": self.request_count,
             "avgServingSec": self.avg_serving_sec,
@@ -382,6 +496,15 @@ def _handler_for(front: HttpServing):
                 self._send(200, server.status())
             elif path == "/stats.json":
                 self._send(200, server.serving_stats())
+            elif path == "/reload":
+                try:
+                    iid = server.reload_latest()
+                except Exception as e:  # noqa: BLE001 — answer, log
+                    log.exception("reload failed")
+                    self._send(500, {"message": str(e)})
+                else:
+                    self._send(200, {"message": "Reloaded",
+                                     "engineInstanceId": iid})
             else:
                 self._send(404, {"message": f"no route {path}"})
 
