@@ -13,16 +13,25 @@ no card is visible). It imports nothing of JAX or of ``predictionio_tpu``.
    plain PyTorch versions (``topk_reference`` / ``topk_rows_reference``) on
    the ML-20M catalog (27,136 x 128 padded f32) for B in {1, 8, 64, 128}
    and k in {10, 64, 1000}, and on both sides of stage 1's switch (k 32:
-   the warp selection; k 40: the bitonic sort) at B 8 and 32; a 5-row
-   catalog; n_total off the 512-row tile and off a 256-row chunk (2,049
-   rows, B 20, k 32); tie fixtures at k 10, 32 and 200 (bitwise); the
-   gather variant with unknown rows at B 8, 16 and 128; and one unpacked
-   case past 2^24 rows (an 8.6 GB catalog). Values agree within rtol 1e-5
-   / atol 1e-5 (the two sum in different orders) and every returned id's
-   plain score equals the plain value at its rank; median times of the
-   kernel, the plain version and ``torch.topk(q @ items.T, k)``, and
-   device time by kernel (stage 1 against the merge) at ``topk`` B 128
-   and ``topk_rows`` B 8 and 128.
+   the warp selection; k 40: the warp sort) at B 8 and 32; k 256 and 264
+   (kc 256 on both sides of it) at B 8 and 128; k 7000 at B 8 (lists
+   too long for shared memory merge from the workspace); a one-chunk
+   catalog (200
+   rows, k 40); a 5-row catalog; n_total off the 512-row tile and off a
+   256-row chunk (2,049 rows, B 20, k 32); tie fixtures at k 10, 32 and
+   200 (bitwise); the gather variant with unknown rows at B 8, 16 and
+   128, and at B 8 with k 100; and one unpacked case past 2^24 rows (an
+   8.6 GB catalog). Values agree within rtol 1e-5 / atol 1e-5 (the two
+   sum in different orders) and every returned id's plain score equals
+   the plain value at its rank; median times of the kernel, the plain
+   version and ``torch.topk(q @ items.T, k)``, and device time by kernel
+   (stage 1 against the merge rounds) at ``topk`` B 128 (k 10, 64, 1000)
+   and ``topk_rows`` B 8 (k 20, 100) and 128. Stage 1's ``topk_sort`` at
+   B 128 k 64 and the merge at ``topk_rows`` B 8 k 20 (its two rounds in
+   one ``topk_merge_ticket`` launch) are each timed beside a plain version
+   of their own (the kernel's 64-bit keys in torch: each chunk's sorted
+   best, then a sort of the row's lists, whose decoded result must equal
+   ``topk_reference``) and ``torch.topk``.
 3. Serving: an ML-20M-shaped ALS model (138,493 x 64 users, 26,744 x 64
    items, seeded random factors / sqrt(64)) deployed through the port's
    template, ``Deployed`` (prewarm on) and ``EngineServer``, behind
@@ -31,6 +40,10 @@ no card is visible). It imports nothing of JAX or of ``predictionio_tpu``.
    a few unknown users), each answer equal to a host numpy exact top-k;
    the kernel's launch counter moves with the batches; wall p50/p99, qps,
    and the device's busy share over a second, profiled burst.
+   3b. The same server at num 100 (k_pad 104: ``topk_sort``): 64 queries
+   at once from 4 client processes, each answer equal to the host's exact
+   top-100, one ``topk_rows`` launch a batch; a second, profiled burst
+   must show ``topk_sort`` and the merge rounds among its kernels.
 
 4. Attention kernel vs plain on the card: ``flash_attention``
    (``csrc/flash_attn.cu``) against ``blockwise_attention`` at the seqrec
@@ -154,13 +167,15 @@ no card is visible). It imports nothing of JAX or of ``predictionio_tpu``.
    first answer, batchpredict, the event server's posts) print beside the
    card's name and power limit.
 
-The ALS path (phase 3), the seqrec serving path (phase 5), the seqrec
-training path (phase 6 b and c), the trained ALS model's serving path
-(phase 7e), the storage-deployed path (phase 8) and the deployed server of
-the CLI quickstart (phase 9) are each driven with every launch count set
-to 0 just before and read just after. Before the last line it prints one
-JSON object with a record per kernel entry point (launches on its main
-path, error, times and bound); the last line is
+The ALS path (phase 3) and its num-100 path (phase 3b), the seqrec
+serving path (phase 5), the seqrec training path (phase 6 b and c), the
+trained ALS model's serving path (phase 7e), the storage-deployed path
+(phase 8) and the deployed server of the CLI quickstart (phase 9) are
+each driven with every launch count set to 0 just before and read just
+after. Before the last line it prints one JSON object with a record per
+kernel entry point, and for top-k's ``topk_sort`` (launched by every
+phase-3b call) and merge rounds (by every call of phases 3 and 3b):
+launches on its main path, error, times and bound; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -363,6 +378,109 @@ def bound_ms(b_pad: int, n_pad: int, dim: int, k_pad: int,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def stage_ms(fn, iters: int = 20) -> dict:
+    """Device ms per call of ``fn`` by kernel name, under the profiler."""
+    busy, _ = device_profile(lambda: [fn() for _ in range(iters)])
+    return {k: v / iters for k, v in busy.items()}
+
+
+def kernel_ms(stages: dict, name: str) -> float:
+    """The device ms of the kernels whose names hold ``name``."""
+    return sum(v for k, v in stages.items() if name in k)
+
+
+#: the sign bit of an int64: flipping it orders csrc/topk.cu's unsigned
+#: 64-bit keys as signed ones
+KEY_FLIP = torch.iinfo(torch.int64).min
+
+
+def plain_keys(scores: torch.Tensor, n_total: int) -> torch.Tensor:
+    """csrc/topk.cu's keys of a [B, N_pad] f32 score matrix (columns at or
+    past n_total -inf, -0.0 as +0.0), in int64 with the sign bit flipped,
+    so that torch's signed order is the keys' order."""
+    n = scores.shape[1]
+    col = torch.arange(n, device=scores.device)
+    s = scores.masked_fill(col >= n_total, float("-inf")) + 0.0
+    u = s.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    u = torch.where(u >= 0x80000000, u ^ 0xFFFFFFFF, u | 0x80000000)
+    return ((u << 32) | (~col & 0xFFFFFFFF)) ^ KEY_FLIP
+
+
+def decode_keys(keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(scores f32, ids int32, -1 where the score is not finite) of
+    ``plain_keys``' keys: the kernel's epilogue."""
+    k = keys ^ KEY_FLIP
+    u = (k >> 32) & 0xFFFFFFFF
+    u = torch.where(u >= 0x80000000, u & 0x7FFFFFFF, ~u & 0xFFFFFFFF)
+    vals = u.to(torch.int32).view(torch.float32)
+    ids = (~k & 0xFFFFFFFF).to(torch.int32)
+    return vals, torch.where(torch.isfinite(vals), ids, -1)
+
+
+def chunk_lists(keys: torch.Tensor, k_pad: int) -> torch.Tensor:
+    """Stage 1's plain version: each 256-row chunk's best min(k_pad, 256)
+    keys, sorted descending, [B, n_chunks * kc]."""
+    b, n = keys.shape
+    return keys.view(b, n // 256, 256).topk(min(k_pad, 256), dim=2).values \
+        .reshape(b, -1)
+
+
+def merge_case(name, q, items, n_total, call: dict) -> dict:
+    """The merge rounds against their plain version (a full sort of the
+    row's chunk lists) and ``torch.topk`` of the same keys, at the shape of
+    the timed fixture ``call`` (its ``stage_ms`` split gives the rounds'
+    device time). The plain keys decoded equal ``topk_reference``."""
+    k_pad = call["k_pad"]
+    scores = q @ items.T
+    lists = chunk_lists(plain_keys(scores, n_total), k_pad)
+    plain = lambda: torch.sort(lists, dim=1,  # noqa: E731
+                               descending=True).values[:, :k_pad]
+    vals, ids = decode_keys(plain())
+    ref = topk_reference(q, items, n_total, k_pad)
+    check(torch.equal(vals, ref[0]) and torch.equal(ids, ref[1]),
+          "the plain merge of the plain keys differs from topk_reference")
+    scores = scores.masked_fill(
+        torch.arange(items.shape[0], device=items.device) >= n_total,
+        float("-inf"))
+    err = compare(kernels.topk(q, items, n_total, k_pad), (vals, ids),
+                  scores, k_pad, bitwise=False)
+    del scores
+    b, n_keys = lists.shape
+    nbytes = 8 * b * n_keys + 4 * b * 2 * k_pad
+    return {"case": name, "b_pad": b, "n_pad": int(items.shape[0]),
+            "k_pad": k_pad, "packed": True, "max_abs_err": err,
+            "ms": kernel_ms(call["stage_ms"], "topk_merge"),
+            "plain_ms": device_ms(plain),
+            "library_ms": device_ms(lambda: torch.topk(lists, k_pad)),
+            "bound_ms": nbytes / PEAK_BYTES_S * 1e3, "bound_by": "bytes"}
+
+
+def stage1_record(call: dict, q, items, n_total: int) -> dict:
+    """Stage 1 (``topk_sort`` at k_pad > 32) at the timed ``topk`` fixture
+    ``call``: its device time from the ``stage_ms`` split, its plain version
+    (the scores, the keys and each chunk's sorted best, ``chunk_lists``)
+    and ``torch.topk`` of each chunk's scores; the bound reads the queries
+    and the catalog, writes the lists and does 2*B*N*D f32 FLOP."""
+    k_pad = call["k_pad"]
+    b, n = call["b_pad"], call["n_pad"]
+    dim = int(items.shape[1])
+    plain = lambda: chunk_lists(  # noqa: E731
+        plain_keys(q @ items.T, n_total), k_pad)
+    library = lambda: torch.topk(  # noqa: E731
+        (q @ items.T).view(b, n // 256, 256), min(k_pad, 256), dim=2)
+    nbytes = 4 * (b * dim + n * dim) + 8 * b * (n // 256) * min(k_pad, 256)
+    t_bytes = nbytes / PEAK_BYTES_S
+    t_ops = 2 * b * n * dim / PEAK_F32_FLOP_S
+    return {"max_abs_err": call["max_abs_err"],
+            "ms": kernel_ms(call["stage_ms"], "topk_sort"),
+            "plain_ms": device_ms(plain), "library_ms": device_ms(library),
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+# -- phase 2 ------------------------------------------------------------
+
+
 # -- phase 2 ------------------------------------------------------------
 
 
@@ -427,13 +545,14 @@ def phase_kernels(dev, *, n_items=N_ITEMS, n_users=N_USERS, rank=RANK,
             recs.append(kernel_case(f"ml20m B={b} k={k}", q, items, n_items,
                                     k, timing=timing))
     if timing:
-        # where the full plain-entry batch (b_pad 128, k_pad 16) spends its
-        # device time, by kernel
-        busy, _ = device_profile(lambda: [
-            kernels.topk(q, items, n_items, 16) for _ in range(20)])
-        recs[-3]["stage_ms"] = {k: v / 20 for k, v in busy.items()}
+        # where the full plain-entry batch (b_pad 128) spends its device
+        # time, by kernel: k_pad 16 (topk_select), 64 and 1000 (topk_sort)
+        for rec in recs[-3:]:
+            rec["stage_ms"] = stage_ms(lambda rec=rec: kernels.topk(
+                q, items, n_items, rec["k_pad"]))
+        recs[-2]["stage1"] = stage1_record(recs[-2], q, items, n_items)
     # both sides of the stage-1 switch (k_pad <= 32: warp selection, else
-    # the bitonic sort) at QT 8 and QT 32; a generator of their own keeps
+    # the warp sort) at QT 8 and QT 32; a generator of their own keeps
     # the other fixtures' data as it was
     rng2 = np.random.default_rng(SEED + 1)
     for b in (8, 32):
@@ -455,14 +574,24 @@ def phase_kernels(dev, *, n_items=N_ITEMS, n_users=N_USERS, rank=RANK,
                             timing=timing))
     recs.append(kernel_case("ml20m rows B=16 k=20", qtab, items, n_items,
                             20, rows=rows[:16].contiguous().to(dev)))
+    # num 100 at the 8-row bucket (k_pad 104: topk_sort), as phase 3b sends
+    recs.append(kernel_case("ml20m rows B=8 k=100", qtab, items, n_items,
+                            100, rows=rows[4:12].contiguous().to(dev),
+                            timing=timing))
     if timing:
         # where one serving-shape call spends its device time, by kernel
-        for rec, sel in ((recs[-3], rows), (recs[-2], rows[4:12])):
+        for rec, sel in ((recs[-4], rows), (recs[-3], rows[4:12]),
+                         (recs[-1], rows[4:12])):
             sel = sel.contiguous().to(dev)
-            busy, _ = device_profile(lambda: [
-                kernels.topk_rows(sel, qtab, items, n_items, 24)
-                for _ in range(20)])
-            rec["stage_ms"] = {k: v / 20 for k, v in busy.items()}
+            rec["stage_ms"] = stage_ms(lambda rec=rec, sel=sel: (
+                kernels.topk_rows(sel, qtab, items, n_items, rec["k_pad"])))
+        # the merge rounds at the 8-row bucket against their plain version
+        rows8 = rows[4:12].contiguous().to(dev)
+        ok = (rows8 >= 0) & (rows8 < qtab.shape[0])
+        q8 = qtab[torch.where(ok, rows8, 0).long()].masked_fill(
+            ~ok[:, None], 0.0)
+        recs.append(merge_case("merge rows B=8 k=20", q8, items, n_items,
+                               recs[-3]))
     del qtab
     # a 5-row catalog with k > N, and n_total off the 512 tile
     small = padded_catalog(rng, 5, 24, dev)
@@ -484,6 +613,21 @@ def phase_kernels(dev, *, n_items=N_ITEMS, n_users=N_USERS, rank=RANK,
         recs.append(kernel_case(f"ties k={k}", torch.from_numpy(tq).to(dev),
                                 torch.from_numpy(tied).to(dev), len(tie), k,
                                 bitwise=True))
+    # kc 256 on both sides of k 256 (three merge rounds at b_pad 8), and a
+    # one-chunk catalog (one list, one round); a generator of their own
+    rng3 = np.random.default_rng(SEED + 2)
+    for b in (8, 128):
+        q = padded_queries(rng3, b, rank, items.shape[1], dev, scale)
+        for k in (256, 264):
+            recs.append(kernel_case(f"ml20m B={b} k={k}", q, items, n_items,
+                                    k))
+    # k 7000: lists past 6,144 keys merge in pairs from the workspace
+    # (six rounds, the last two topk_merge_round<false>)
+    q = padded_queries(rng3, 8, rank, items.shape[1], dev, scale)
+    recs.append(kernel_case("ml20m B=8 k=7000", q, items, n_items, 7000))
+    one = padded_catalog(rng3, 200, rank, dev, scale)
+    recs.append(kernel_case("n_total=200 B=8 k=40", padded_queries(
+        rng3, 8, rank, one.shape[1], dev, scale), one, 200, 40))
     # unpacked: ids past 2^24 are not exact in f32, so two buffers
     big = torch.empty(((big_rows + 511) // 512 * 512, 128), device=dev)
     big.normal_(generator=torch.Generator(device=dev).manual_seed(SEED))
@@ -680,6 +824,51 @@ def phase_serving(dev, server, *, n_seq=16, n_conc=256, procs=4,
             "burst_avg_batch": burst_batch,
             "burst_server_ms": layers,
             "max_batch": b.max_seen_batch,
+            "device_busy_share": sum(busy.values()) / 1e3 / prof_s}
+
+
+def phase_wide_serving(dev, server, *, n_conc=64, num=100, procs=4,
+                       threads=16) -> dict:
+    """Phase 3b: ``n_conc`` queries at ``num`` (k_pad 104: stage 1 is
+    ``topk_sort``) sent at once to phase 3's server, each answer the host's
+    exact top-``num``; then the same burst under the profiler, which must
+    show ``topk_sort`` and the merge (``topk_merge_round``)."""
+    model = server.deployed.result.models[0]
+    users, items = model.user_factors, model.item_factors
+    rng = np.random.default_rng(SEED + 3)
+    queries = [{"user": f"u{int(rng.integers(0, len(users)))}", "num": num}
+               for _ in range(n_conc)]
+    with serve(server, "127.0.0.1", 0) as front:
+        url = f"http://127.0.0.1:{front.port}/queries.json"
+        b = server.batcher
+        batches0 = b.batches
+        dispatches0 = model._pipeline.stats()["dispatches"]
+        answers, span = burst(url, queries, procs, threads)
+        for qj, (body, _wall) in zip(queries, answers):
+            host_check(body, qj, users, items)
+        batches = b.batches - batches0
+        launches = kernels.LAUNCHES["topk_rows"]
+        dispatches = model._pipeline.stats()["dispatches"] - dispatches0
+        prof_answers = []
+        busy, prof_s = device_profile(lambda: prof_answers.extend(
+            burst(url, queries, procs, threads)[0]))
+        for qj, (body, _wall) in zip(queries, prof_answers):
+            host_check(body, qj, users, items)
+    check(launches == dispatches == batches,
+          f"{launches} topk_rows launches for {batches} batches at num "
+          f"{num} ({dispatches} pipeline dispatches)")
+    seen = {name: sum(v for k, v in busy.items() if name in k)
+            for name in ("topk_select", "topk_sort", "topk_merge")}
+    check(seen["topk_sort"] > 0 and seen["topk_merge"] > 0,
+          f"the profiled num-{num} burst ran no topk_sort or no merge round:"
+          f" {sorted(busy)}")
+    walls_ms = np.array([w for _body, w in answers]) * 1e3
+    return {"queries": n_conc, "num": num, "batches": batches,
+            "topk_rows_launches": launches,
+            "wall_p50_ms": float(np.percentile(walls_ms, 50)),
+            "wall_p99_ms": float(np.percentile(walls_ms, 99)),
+            "qps_concurrent": n_conc / span, "clients": procs * threads,
+            "kernel_device_ms": seen,
             "device_busy_share": sum(busy.values()) / 1e3 / prof_s}
 
 
@@ -2492,9 +2681,20 @@ def main() -> int:
           f"a kernel of the ALS serving path never launched: {launches}")
     print("[serving] " + json.dumps({**serving, "launches": launches,
                                      "card": smi}), flush=True)
+    clock.lap("3 ALS serving")
+
+    # the same server at num 100 (topk_sort and the merge rounds), counted
+    # from zero
+    reset_launches()
+    wide = phase_wide_serving(dev, server)
+    wide_launches = dict(kernels.LAUNCHES)
+    check(wide_launches["topk_rows"] > 0,
+          f"topk_rows never launched at num 100: {wide_launches}")
+    print("[serving-num100] " + json.dumps({
+        **wide, "launches": wide_launches, "card": smi}), flush=True)
     del server
     torch.cuda.empty_cache()
-    clock.lap("3 ALS serving")
+    clock.lap("3b ALS serving at num 100")
 
     attn = phase_attention(dev)
     clock.lap("4 attention kernel")
@@ -2608,6 +2808,15 @@ def main() -> int:
                       by_case["ml20m B=128 k=10"]),
         kernel_record("topk_rows", launches["topk_rows"],
                       by_case["ml20m rows B=8 k=20"]),
+        # stage 1 past k_pad 32 (every launch of phase 3b), and the merge
+        # (topk_merge_round or topk_merge_ticket: every call of phases 3
+        # and 3b launches one or more)
+        kernel_record("topk_sort", wide_launches["topk_rows"],
+                      by_case["ml20m B=128 k=64"]["stage1"]),
+        kernel_record("topk_merge",
+                      launches["topk"] + launches["topk_rows"]
+                      + wide_launches["topk_rows"],
+                      by_case["merge rows B=8 k=20"]),
         kernel_record("flash_attention", seq_launches["flash_attention"],
                       by_attn[SERVING_CASE], source=FLASH_SOURCE,
                       replaces=FLASH_REPLACES),

@@ -12,29 +12,49 @@
 // one output block; on a GPU that would serialise. Here the work splits in two:
 //
 //   stage 1: one CTA of 8 warps per (query tile of QT = 8, 16 or 32 x
-//     256-row catalog chunk). It scores with f32 FMAs on CUDA cores (no TF32,
-//     no cuBLAS; each score one fmaf chain from feature 0, so every version
-//     gives the same bits), masks id >= n_total to -inf, turns each score into
-//     a 64-bit key and writes the chunk's best kc = min(k, 256) keys, sorted
-//     descending, to a workspace. Two kernels, one list layout:
-//     - topk_select (kc <= 32, every serving shape). Warp w owns QT/8
-//       queries and lane l the items l, l+32, .., l+224, so each thread holds
-//       a QT/8 x 8 register tile of scores, fed by 16-byte shared loads
-//       (the items' rows padded to 36 floats, conflict-free; the queries'
-//       broadcast). The chunk's rows and the tile's query rows (through
-//       `rows` for the gather variant) stream in 32-feature slabs through a
-//       two-stage cp.async ring. The scores never leave registers: a lane
-//       sorts its 8 keys of a query with a 19-comparator network, then kc
-//       rounds each take the warp's largest head (two `redux.sync` maxima:
-//       the high words, then the low words of the heads that carry the
-//       largest high word) and the winning lane pops it.
-//     - topk_partial (kc > 32). One catalog row per thread against all QT
-//       queries, the chunk staged 32 features at a time, then a CTA-wide
-//       bitonic sort of each query's 256 keys.
-//   stage 2 (topk_merge): one CTA per query row merges the chunk lists
-//     pairwise, level by level, each key finding its place in the merged list
-//     by a binary search in the partner list; lists stay capped at k. The
-//     lists live in shared memory when they fit, else in the workspace.
+//     256-row catalog chunk) writes the chunk's best kc = min(k, 256) keys
+//     of each query, sorted descending, to a workspace [b_pad, n_chunks, kc].
+//     Both kernels score alike (score_tile): warp w owns QT/8 queries and
+//     lane l the items l, l+32, .., l+224, so each thread holds a QT/8 x 8
+//     register tile of f32 scores (f32 FMAs on CUDA cores, no TF32, no
+//     cuBLAS; each score one fmaf chain from feature 0, so every version
+//     gives the same bits), fed by 16-byte shared loads (the items' rows
+//     padded to 36 floats, conflict-free; the queries' broadcast). The
+//     chunk's rows and the tile's query rows (through `rows` for the gather
+//     variant) stream in 32-feature slabs through a two-stage cp.async ring.
+//     Rows at or past n_total become -inf, each score a 64-bit key, and a
+//     lane sorts its 8 keys of a query with a 19-comparator network. The
+//     keys never leave registers:
+//     - topk_select (kc <= 32, every serving num up to 32): kc rounds each
+//       take the warp's largest head (two `redux.sync` maxima: the high
+//       words, then the low words of the heads that carry the largest high
+//       word) and the winning lane pops it.
+//     - topk_sort (kc > 32): the warp finishes a bitonic sort of the 256
+//       keys, lane l holding positions 8l .. 8l+7: steps across lanes are
+//       `shfl.xor` of the two 32-bit halves, steps within a lane register
+//       compare-exchanges; no shared memory and no barrier. The sorted
+//       keys turn around through the warp's 2 KB of the idle ring, so the
+//       first kc go out in coalesced stores.
+//   stage 2: the merge in rounds. A round is one launch of
+//     topk_merge_round over (b_pad rows x groups of S lists): CTA (b, g)
+//     loads lists gS .. gS+S-1 of row b into shared memory and merges them
+//     pairwise, level by level, each key finding its place in the merged
+//     list by a binary search in the partner list; lists stay capped at k.
+//     It writes one list, and the last round (one group a row) writes the
+//     result. The rounds ping-pong between the workspace's two buffers. The
+//     host picks S a round (merge_group): the group fits 64 KB of shared
+//     memory where it can (three CTAs an SM); the first round has at least
+//     one CTA an SM unless the rows alone come within 3/4 of that; the
+//     lists left go into one last group once they fit 192 KB. A round
+//     whose two lists of k keys pass 192 KB merges pairs straight from the
+//     workspace. Where the plan is two rounds and the second one group,
+//     one launch of topk_merge_ticket runs both, unless sizing every CTA
+//     for the second round would fit fewer CTAs an SM: each CTA merges its
+//     group, then takes a ticket from its row's counter (zeroed by stage
+//     1), and the row's last CTA merges the row. That saves a launch at
+//     the 8-row serving bucket; at k 1000 (112 KB a CTA) it would cost a
+//     third of round 1's CTAs. No memset; the tickets' atomics order no
+//     data: keys are unique, so any correct merge gives the same bits.
 //
 // The key is the order-preserving bits of the f32 score above the bitwise NOT
 // of the id, so a larger key means a higher score, then a lower id, and keys
@@ -45,11 +65,13 @@
 // device memory (about 4 us at 3.35 TB/s) and does 2*B*N*D FLOP, 0.89 GFLOP at
 // B = 128 (about 13 us at 67 TFLOP/s f32): f32 FMA throughput bounds the large
 // batches, memory the small ones. Stage 1 re-reads the catalog once per query
-// tile (from L2, where it stays resident). In topk_select every warp reads
-// the whole chunk from shared memory, so at QT 32 the shared loads and the
-// FMAs take about as long as each other, and at QT 8 the shared loads bound
-// the scoring; at QT 32, kc 16 the selection costs about half as many
-// instructions as the scoring.
+// tile (from L2, where it stays resident). Every warp reads the whole chunk
+// from shared memory, so at QT 32 the shared loads and the FMAs take about
+// as long as each other, and at QT 8 the shared loads bound the scoring. At
+// QT 32 the selection costs about half as many instructions as the scoring
+// at kc 16; the warp sort (240 shuffles of 32 bits and 60 in-lane
+// compare-exchanges a query) about as many. Above k 256 every key of the
+// catalog passes through the workspace (written once, read once).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -59,8 +81,21 @@ namespace {
 constexpr int kThreads = 256;                // threads per CTA, both stages
 constexpr int kChunk = 256;                  // catalog rows per stage-1 CTA
 constexpr int kSlab = 32;                    // features staged per pass
-constexpr int kSlabStride = kSlab + 1;       // padded row: conflict-free reads
-constexpr int kMergeSmemMax = 192 * 1024;    // stage-2 shared-memory ceiling
+constexpr int kSelMax = 32;                  // largest kc topk_select takes
+constexpr int kWarps = kThreads / 32;
+constexpr int kPerLane = kChunk / 32;        // a lane's keys of one query
+constexpr int kRowStride = kSlab + 4;        // 16-byte rows, LDS.128 conflict-free
+constexpr int kMergeTarget = 64 * 1024;      // a merge CTA's aimed-for smem
+constexpr int kMergeSmemMax = 192 * 1024;    // a merge CTA's smem ceiling
+constexpr int kMaxGroups = 65535;            // grid.y of a merge round
+// a merge CTA's threads and (by __launch_bounds__) registers let this many
+// share an SM; shared memory may let fewer
+constexpr int kMergeCtasPerSm = 2048 / kThreads;
+
+// the card's, read by pio_topk_init
+int g_sm_count = 132;                        // SMs
+int g_smem_per_sm = 233472;                  // shared memory an SM holds
+int g_smem_reserved = 1024;                  // an SM reserves per CTA
 
 __device__ __forceinline__ uint64_t make_key(float score, uint32_t id) {
   uint32_t u = __float_as_uint(score);
@@ -90,123 +125,6 @@ __device__ __forceinline__ int count_greater(const uint64_t* list, int n,
   return lo;
 }
 
-template <int QT>
-constexpr int partial_smem_bytes() {
-  return QT * kSlab * int(sizeof(float)) +
-         (kChunk * kSlabStride * int(sizeof(float)) >
-                  QT * kChunk * int(sizeof(uint64_t))
-              ? kChunk * kSlabStride * int(sizeof(float))
-              : QT * kChunk * int(sizeof(uint64_t)));
-}
-
-// Stage 1. grid = (n_chunks, b_pad / QT), block = kThreads.
-// q: [q_rows, dim] f32; rows: [b_pad] int32 or null (then query b is q row b);
-// items: [n_items, dim] f32; ws: [b_pad, n_chunks, kc] keys, each list sorted
-// descending.
-template <int QT>
-__global__ void __launch_bounds__(kThreads)
-topk_partial(const float* __restrict__ q, const int* __restrict__ rows,
-             int64_t q_rows, const float* __restrict__ items, int64_t n_items,
-             int dim, int64_t n_total, int kc, int n_chunks,
-             uint64_t* __restrict__ ws) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem);                      // [QT][kSlab]
-  unsigned char* region = smem + QT * kSlab * sizeof(float);
-  float* its = reinterpret_cast<float*>(region);                   // [kChunk][kSlabStride]
-  uint64_t* keys = reinterpret_cast<uint64_t*>(region);            // [QT][kChunk], after scoring
-  __shared__ int64_t qrow[QT];
-
-  const int t = threadIdx.x;
-  const int chunk = blockIdx.x;
-  const int b0 = blockIdx.y * QT;
-  const int64_t item0 = int64_t(chunk) * kChunk;
-
-  if (t < QT) {
-    int64_t r = b0 + t;
-    if (rows != nullptr) {
-      r = rows[b0 + t];
-      if (r < 0 || r >= q_rows) r = -1;     // scores as a zero query
-    }
-    qrow[t] = r;
-  }
-  float acc[QT];
-#pragma unroll
-  for (int i = 0; i < QT; ++i) acc[i] = 0.0f;
-  __syncthreads();
-
-  for (int d0 = 0; d0 < dim; d0 += kSlab) {
-    for (int e = t; e < QT * kSlab; e += kThreads) {
-      const int64_t r = qrow[e / kSlab];
-      qs[e] = r >= 0 ? q[r * dim + d0 + e % kSlab] : 0.0f;
-    }
-    for (int e = t; e < kChunk * (kSlab / 4); e += kThreads) {
-      const int row = e / (kSlab / 4);
-      const int c = (e % (kSlab / 4)) * 4;
-      const int64_t gi = item0 + row;
-      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (gi < n_items)
-        v = *reinterpret_cast<const float4*>(items + gi * dim + d0 + c);
-      float* dst = its + row * kSlabStride + c;
-      dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
-    }
-    __syncthreads();
-    const float* mine = its + t * kSlabStride;
-#pragma unroll 2
-    for (int dd = 0; dd < kSlab; dd += 4) {
-      const float x0 = mine[dd], x1 = mine[dd + 1];
-      const float x2 = mine[dd + 2], x3 = mine[dd + 3];
-#pragma unroll
-      for (int i = 0; i < QT; ++i) {
-        const float4 qv = *reinterpret_cast<const float4*>(qs + i * kSlab + dd);
-        float a = acc[i];
-        a = fmaf(qv.x, x0, a);
-        a = fmaf(qv.y, x1, a);
-        a = fmaf(qv.z, x2, a);
-        a = fmaf(qv.w, x3, a);
-        acc[i] = a;
-      }
-    }
-    __syncthreads();
-  }
-
-  const int64_t item = item0 + t;
-#pragma unroll
-  for (int i = 0; i < QT; ++i) {
-    const float s = item < n_total ? acc[i] : -__int_as_float(0x7f800000);
-    keys[i * kChunk + t] = make_key(s, uint32_t(item));
-  }
-  __syncthreads();
-
-  // Bitonic sort of each query's kChunk keys, descending.
-  for (int size = 2; size <= kChunk; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int p = t; p < QT * (kChunk / 2); p += kThreads) {
-        uint64_t* row = keys + (p / (kChunk / 2)) * kChunk;
-        const int l = p % (kChunk / 2);
-        const int i = 2 * stride * (l / stride) + (l % stride);
-        const int j = i + stride;
-        const uint64_t a = row[i], b = row[j];
-        const bool descending = (i & size) == 0;
-        if (descending ? (a < b) : (a > b)) { row[i] = b; row[j] = a; }
-      }
-      __syncthreads();
-    }
-  }
-
-  for (int e = t; e < QT * kc; e += kThreads) {
-    const int i = e / kc, p = e % kc;
-    ws[(int64_t(b0 + i) * n_chunks + chunk) * kc + p] = keys[i * kChunk + p];
-  }
-}
-
-// Stage 1 for kc <= kSelMax: the same lists as topk_partial, from register
-// tiles and a warp selection instead of the CTA-wide bitonic sort.
-
-constexpr int kSelMax = 32;                  // largest kc the selection takes
-constexpr int kWarps = kThreads / 32;
-constexpr int kPerLane = kChunk / 32;        // a lane's keys of one query
-constexpr int kRowStride = kSlab + 4;        // 16-byte rows, LDS.128 conflict-free
-
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -232,13 +150,13 @@ __device__ __forceinline__ void cp_async_wait() {
 // One ring stage: the chunk's kChunk item rows, then the QT query rows, each
 // a kSlab-feature slice padded to kRowStride floats.
 template <int QT>
-__host__ __device__ constexpr int select_stage_floats() {
+__host__ __device__ constexpr int ring_stage_floats() {
   return (kChunk + QT) * kRowStride;
 }
 
 template <int QT>
-__host__ __device__ constexpr int select_smem_bytes() {
-  return 2 * select_stage_floats<QT>() * int(sizeof(float));
+__host__ __device__ constexpr int ring_smem_bytes() {
+  return 2 * ring_stage_floats<QT>() * int(sizeof(float));
 }
 
 __device__ __forceinline__ void order_desc(uint64_t& a, uint64_t& b) {
@@ -260,31 +178,24 @@ __device__ __forceinline__ void sort8_desc(uint64_t (&k)[kPerLane]) {
   order_desc(k[1], k[2]); order_desc(k[3], k[4]); order_desc(k[5], k[6]);
 }
 
-// Stage 1, kc <= kSelMax. grid = (n_chunks, b_pad / QT), block = kThreads;
-// the arguments and the lists written to ws are topk_partial's. Warp w owns
-// queries w*RQ .. w*RQ+RQ-1 of the tile, and lane l the chunk's items
-// l, l+32, .., l+224: each thread scores an RQ x 8 block, features streamed
-// through a two-stage cp.async ring, each score one fmaf chain from feature
-// 0 (topk_partial's order, so the same bits). A lane sorts its 8 keys of a
-// query in registers; then kc rounds each take the warp's largest head,
-// lane `round` keeps it and the winning lane pops it.
+// Stage 1's scoring, for grid = (n_chunks, b_pad / QT), block = kThreads.
+// q: [q_rows, dim] f32; rows: [b_pad] int32 or null (then query b is q row
+// b); items: [n_items, dim] f32; ring: ring_smem_bytes<QT>() of dynamic
+// shared memory, free again on return. Thread (warp w, lane l) of CTA
+// (chunk, tile) returns in acc[r][j] the score of query tile*QT + w*RQ + r
+// against the chunk's item l + 32j. Features stream through a two-stage
+// cp.async ring; each score is one fmaf chain from feature 0.
 template <int QT>
-__global__ void __launch_bounds__(kThreads, 2)
-topk_select(const float* __restrict__ q, const int* __restrict__ rows,
-            int64_t q_rows, const float* __restrict__ items, int64_t n_items,
-            int dim, int64_t n_total, int kc, int n_chunks,
-            uint64_t* __restrict__ ws) {
+__device__ __forceinline__ void score_tile(
+    const float* __restrict__ q, const int* __restrict__ rows, int64_t q_rows,
+    const float* __restrict__ items, int64_t n_items, int dim, float* ring,
+    int64_t* qrow, float (&acc)[QT / kWarps][kPerLane]) {
   constexpr int RQ = QT / kWarps;
-  constexpr int kStage = select_stage_floats<QT>();
+  constexpr int kStage = ring_stage_floats<QT>();
   constexpr int kCopies = (kChunk + QT) * (kSlab / 4);  // 16-byte copies a stage
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* ring = reinterpret_cast<float*>(smem);
-  __shared__ int64_t qrow[QT];
-
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int chunk = blockIdx.x;
   const int b0 = blockIdx.y * QT;
-  const int64_t item0 = int64_t(chunk) * kChunk;
+  const int64_t item0 = int64_t(blockIdx.x) * kChunk;
 
   if (t < QT) {
     int64_t r = b0 + t;
@@ -317,7 +228,6 @@ topk_select(const float* __restrict__ q, const int* __restrict__ rows,
     cp_async_commit();
   };
 
-  float acc[RQ][kPerLane];
 #pragma unroll
   for (int r = 0; r < RQ; ++r)
 #pragma unroll
@@ -359,18 +269,46 @@ topk_select(const float* __restrict__ q, const int* __restrict__ rows,
     }
     __syncthreads();
   }
+}
 
+// A lane's keys of one query from its scores of the chunk's items
+// lane + 32j (-inf at or past n_total), sorted descending.
+__device__ __forceinline__ void lane_keys(const float (&acc)[kPerLane],
+                                          int64_t n_total,
+                                          uint64_t (&key)[kPerLane]) {
+  const int64_t item0 = int64_t(blockIdx.x) * kChunk + (threadIdx.x & 31);
+#pragma unroll
+  for (int j = 0; j < kPerLane; ++j) {
+    const int64_t item = item0 + 32 * j;
+    const float s = item < n_total ? acc[j] : -__int_as_float(0x7f800000);
+    key[j] = make_key(s, uint32_t(item));
+  }
+  sort8_desc(key);
+}
+
+// Stage 1, kc <= kSelMax. grid = (n_chunks, b_pad / QT), block = kThreads;
+// ws: [b_pad, n_chunks, kc] keys, each list sorted descending; the first
+// chunk column zeroes the tile's merge tickets [b_pad]. After
+// score_tile, kc rounds each take the warp's largest head: lane `round`
+// keeps it and the winning lane pops it.
+template <int QT>
+__global__ void __launch_bounds__(kThreads, 2)
+topk_select(const float* __restrict__ q, const int* __restrict__ rows,
+            int64_t q_rows, const float* __restrict__ items, int64_t n_items,
+            int dim, int64_t n_total, int kc, int n_chunks,
+            uint64_t* __restrict__ ws, unsigned* __restrict__ tickets) {
+  constexpr int RQ = QT / kWarps;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int64_t qrow[QT];
+  float acc[RQ][kPerLane];
+  score_tile<QT>(q, rows, q_rows, items, n_items, dim,
+                 reinterpret_cast<float*>(smem), qrow, acc);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b0 = blockIdx.y * QT;
+  if (blockIdx.x == 0 && threadIdx.x < QT) tickets[b0 + threadIdx.x] = 0u;
   uint64_t key[RQ][kPerLane];
 #pragma unroll
-  for (int r = 0; r < RQ; ++r) {
-#pragma unroll
-    for (int j = 0; j < kPerLane; ++j) {
-      const int64_t item = item0 + lane + 32 * j;
-      const float s = item < n_total ? acc[r][j] : -__int_as_float(0x7f800000);
-      key[r][j] = make_key(s, uint32_t(item));
-    }
-    sort8_desc(key[r]);
-  }
+  for (int r = 0; r < RQ; ++r) lane_keys(acc[r], n_total, key[r]);
 
   // Every real key is > 0 (its low word is ~id >= 1), so 0 marks a lane
   // that has given up all its keys.
@@ -396,91 +334,363 @@ topk_select(const float* __restrict__ q, const int* __restrict__ rows,
   if (lane < kc) {
 #pragma unroll
     for (int r = 0; r < RQ; ++r)
-      ws[(int64_t(b0 + warp * RQ + r) * n_chunks + chunk) * kc + lane] = out[r];
+      ws[(int64_t(b0 + warp * RQ + r) * n_chunks + blockIdx.x) * kc + lane] =
+          out[r];
   }
 }
 
-// Length of list `li` at a merge level where each list covers `span` chunks.
-__device__ __forceinline__ int list_len(int li, int span, int n_chunks, int kc,
-                                        int k_pad) {
-  const int chunks = min(span, n_chunks - li * span);
-  return int(min(int64_t(chunks) * kc, int64_t(k_pad)));
+__device__ __forceinline__ uint64_t shfl_xor64(uint64_t v, int mask) {
+  const uint32_t lo = __shfl_xor_sync(0xffffffffu, uint32_t(v), mask);
+  const uint32_t hi = __shfl_xor_sync(0xffffffffu, uint32_t(v >> 32), mask);
+  return (uint64_t(hi) << 32) | lo;
 }
 
-// Stage 2. grid = (b_pad), block = kThreads. Row b's lists start at
-// src + b * row_len (row_len = n_chunks * kc); `spare` has the same layout and
-// is the ping-pong partner when the lists do not fit in shared memory.
-template <bool kInSmem>
-__global__ void __launch_bounds__(kThreads)
-topk_merge(uint64_t* __restrict__ src_all, uint64_t* __restrict__ spare_all,
-           int n_chunks, int kc, int k_pad, float* __restrict__ packed,
-           float* __restrict__ vals, int* __restrict__ ids) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int t = threadIdx.x;
-  const int b = blockIdx.x;
-  const int64_t row_len = int64_t(n_chunks) * kc;
-  uint64_t* src = src_all + b * row_len;
-  uint64_t* dst = spare_all + b * row_len;
-  if (kInSmem) {
-    uint64_t* s = reinterpret_cast<uint64_t*>(smem);
-    for (int64_t e = t; e < row_len; e += kThreads) s[e] = src[e];
-    src = s;
-    dst = s + row_len;
-    __syncthreads();
-  }
+// `upper` keeps the smaller of its key and the partner's, the other side
+// the larger.
+__device__ __forceinline__ uint64_t keep(uint64_t mine, uint64_t other,
+                                         bool upper) {
+  return (mine > other) != upper ? mine : other;
+}
 
-  int n_lists = n_chunks, stride = kc, span = 1;
-  while (n_lists > 1) {
-    const int out_stride = min(2 * stride, k_pad);
-    const int64_t work = int64_t(n_lists) * stride;
-    for (int64_t e = t; e < work; e += kThreads) {
-      const int li = int(e / stride);
-      const int p = int(e % stride);
-      if (p >= list_len(li, span, n_chunks, kc, k_pad)) continue;
-      const uint64_t key = src[int64_t(li) * stride + p];
-      int pos = p;
-      const int other = li ^ 1;
-      if (other < n_lists)
-        pos += count_greater(src + int64_t(other) * stride,
-                             list_len(other, span, n_chunks, kc, k_pad), key);
-      if (pos < out_stride) dst[int64_t(li >> 1) * out_stride + pos] = key;
+// The warp's 256 keys at positions 8 * lane + j, each lane's 8 sorted
+// descending, sorted descending across the warp. Blocks of 8m positions
+// (m = 1, 2, .., 16 lanes) merge into blocks of 16m: a flip step pairs
+// position i with its mirror i ^ (16m - 1) (lane ^ (2m - 1), register
+// 7 - j), then half-cleaners pair i with i ^ 8s (lane ^ s, s = m/2 .. 1)
+// and i ^ 4, ^ 2, ^ 1 within the lane; the lower position keeps the larger
+// key. tests/test_torch_topk_merge.py models this schedule in numpy.
+__device__ __forceinline__ void warp_sort256_desc(uint64_t (&k)[kPerLane],
+                                                  int lane) {
+#pragma unroll
+  for (int m = 1; m < 32; m <<= 1) {
+    const bool upper = (lane & m) != 0;
+#pragma unroll
+    for (int j = 0; j < kPerLane / 2; ++j) {
+      const int jm = kPerLane - 1 - j;
+      // the partner's k[jm] mirrors my k[j], its k[j] my k[jm]
+      const uint64_t a = shfl_xor64(k[jm], 2 * m - 1);
+      const uint64_t b = shfl_xor64(k[j], 2 * m - 1);
+      k[j] = keep(k[j], a, upper);
+      k[jm] = keep(k[jm], b, upper);
     }
+#pragma unroll
+    for (int s = m >> 1; s > 0; s >>= 1) {
+      const bool up = (lane & s) != 0;
+#pragma unroll
+      for (int j = 0; j < kPerLane; ++j) k[j] = keep(k[j], shfl_xor64(k[j], s), up);
+    }
+    order_desc(k[0], k[4]); order_desc(k[1], k[5]);
+    order_desc(k[2], k[6]); order_desc(k[3], k[7]);
+    order_desc(k[0], k[2]); order_desc(k[1], k[3]);
+    order_desc(k[4], k[6]); order_desc(k[5], k[7]);
+    order_desc(k[0], k[1]); order_desc(k[2], k[3]);
+    order_desc(k[4], k[5]); order_desc(k[6], k[7]);
+  }
+}
+
+// Slot of sorted position p in a warp's 256-key staging row: p ^ (p/8 %
+// 8) keeps lane l's writes of p = 8l + j to two lanes a bank pair and the
+// reads of p = 32i + l conflict-free.
+__device__ __forceinline__ int stage_slot(int p) {
+  return p ^ ((p >> 3) & 7);
+}
+
+// Stage 1, kc > kSelMax: topk_select's arguments and lists. After
+// score_tile the warp makes and sorts each of its queries' 256 keys in
+// registers, one query at a time, then turns them around through its own
+// 2 KB of the idle ring so that the first kc go out in coalesced stores
+// (lane l writes positions l, l+32, ..).
+template <int QT>
+__global__ void __launch_bounds__(kThreads, 2)
+topk_sort(const float* __restrict__ q, const int* __restrict__ rows,
+          int64_t q_rows, const float* __restrict__ items, int64_t n_items,
+          int dim, int64_t n_total, int kc, int n_chunks,
+          uint64_t* __restrict__ ws, unsigned* __restrict__ tickets) {
+  constexpr int RQ = QT / kWarps;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int64_t qrow[QT];
+  float acc[RQ][kPerLane];
+  score_tile<QT>(q, rows, q_rows, items, n_items, dim,
+                 reinterpret_cast<float*>(smem), qrow, acc);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b0 = blockIdx.y * QT;
+  if (blockIdx.x == 0 && threadIdx.x < QT) tickets[b0 + threadIdx.x] = 0u;
+  uint64_t* staged = reinterpret_cast<uint64_t*>(smem) + warp * kChunk;
+#pragma unroll
+  for (int r = 0; r < RQ; ++r) {
+    uint64_t key[kPerLane];
+    lane_keys(acc[r], n_total, key);
+    warp_sort256_desc(key, lane);
+#pragma unroll
+    for (int j = 0; j < kPerLane; ++j)
+      staged[stage_slot(lane * kPerLane + j)] = key[j];
+    __syncwarp();
+    uint64_t* dst =
+        ws + (int64_t(b0 + warp * RQ + r) * n_chunks + blockIdx.x) * kc;
+#pragma unroll
+    for (int i = 0; i < kPerLane; ++i) {
+      const int p = 32 * i + lane;
+      if (p < kc) dst[p] = staged[stage_slot(p)];
+    }
+    __syncwarp();
+  }
+}
+
+// Length of list `li` of a group of `chunks` chunks whose lists cover
+// `span` chunks each (each chunk contributes kc keys; lists cap at k_pad).
+__device__ __forceinline__ int list_len(int li, int span, int chunks, int kc,
+                                        int k_pad) {
+  const int c = min(span, chunks - li * span);
+  return int(min(int64_t(c) * kc, int64_t(k_pad)));
+}
+
+// One merge level: the n lists in s (at `stride`) merged pairwise into t
+// (at min(2 * stride, k_pad)); a list without a partner is copied.
+__device__ __forceinline__ void merge_level(const uint64_t* s, uint64_t* t,
+                                            int n, int stride, int span,
+                                            int chunks, int kc, int k_pad) {
+  const int out_stride = min(2 * stride, k_pad);
+  const int work = n * stride;
+  for (int e = threadIdx.x; e < work; e += kThreads) {
+    const int li = e / stride;
+    const int p = e - li * stride;
+    if (p >= list_len(li, span, chunks, kc, k_pad)) continue;
+    const uint64_t key = s[e];
+    int pos = p;
+    const int other = li ^ 1;
+    if (other < n)
+      pos += count_greater(s + other * stride,
+                           list_len(other, span, chunks, kc, k_pad), key);
+    if (pos < out_stride) t[(li >> 1) * out_stride + pos] = key;
+  }
+}
+
+// Loads n lists (at `stride`, each covering `span` of the group's `chunks`
+// chunks) from src into s and merges them pairwise, level by level,
+// ping-ponging with u; returns the merged list (in s or u).
+__device__ __forceinline__ const uint64_t* merge_in_smem(
+    const uint64_t* src, uint64_t* s, uint64_t* u, int n, int stride,
+    int span, int chunks, int kc, int k_pad) {
+  // the full lists, then the last one's keys (it may be short, and end
+  // the row)
+  const int size = (n - 1) * stride + list_len(n - 1, span, chunks, kc, k_pad);
+  for (int e = threadIdx.x; e < size; e += kThreads) s[e] = src[e];
+  __syncthreads();
+  while (n > 1) {
+    merge_level(s, u, n, stride, span, chunks, kc, k_pad);
     __syncthreads();
-    uint64_t* tmp = src; src = dst; dst = tmp;
-    n_lists = (n_lists + 1) >> 1;
-    stride = out_stride;
+    uint64_t* tmp = s; s = u; u = tmp;
+    n = (n + 1) >> 1;
+    stride = min(2 * stride, k_pad);
     span <<= 1;
   }
+  return s;
+}
 
-  for (int r = t; r < k_pad; r += kThreads) {
-    const uint64_t key = src[r];
+// Row b's result from its merged list: packed [b_pad, 2 k_pad] f32 (scores,
+// then ids as f32) when `packed` is not null, else vals and ids
+// [b_pad, k_pad].
+__device__ __forceinline__ void write_result(const uint64_t* list, int64_t b,
+                                             int k_pad, float* packed,
+                                             float* vals, int* ids) {
+  for (int r = threadIdx.x; r < k_pad; r += kThreads) {
+    const uint64_t key = list[r];
     const float v = key_score(key);
-    const bool finite =
-        (__float_as_uint(v) & 0x7f800000u) != 0x7f800000u;
+    const bool finite = (__float_as_uint(v) & 0x7f800000u) != 0x7f800000u;
     const int id = finite ? key_id(key) : -1;
     if (packed != nullptr) {
-      packed[int64_t(b) * 2 * k_pad + r] = v;
-      packed[int64_t(b) * 2 * k_pad + k_pad + r] = float(id);
+      packed[b * 2 * k_pad + r] = v;
+      packed[b * 2 * k_pad + k_pad + r] = float(id);
     } else {
-      vals[int64_t(b) * k_pad + r] = v;
-      ids[int64_t(b) * k_pad + r] = id;
+      vals[b * k_pad + r] = v;
+      ids[b * k_pad + r] = id;
     }
   }
+}
+
+// Stage 2, one round. grid = (b_pad, n_groups), block = kThreads. Row b's
+// lists start at src_all + b * row_len, list i at i * stride, each covering
+// `span` chunks; CTA (b, g) merges lists g*group .. g*group+group-1 into
+// list g of dst (at min(group * stride, k_pad)), or, when the round has one
+// group, into the result. In shared memory (2 * group * stride keys) the
+// CTA runs levels until one list is left; from the workspace, group is 2
+// and the one level writes dst.
+template <bool kInSmem>
+__global__ void __launch_bounds__(kThreads, kMergeCtasPerSm)
+topk_merge_round(const uint64_t* __restrict__ src_all,
+                 uint64_t* __restrict__ dst_all, int64_t row_len,
+                 int n_chunks, int kc, int k_pad, int span, int stride,
+                 int group, float* __restrict__ packed,
+                 float* __restrict__ vals, int* __restrict__ ids) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int64_t b = blockIdx.x;
+  const int g = blockIdx.y;
+  const int64_t chunk0 = int64_t(g) * group * span;
+  const int chunks = int(min(int64_t(group) * span, n_chunks - chunk0));
+  const int n = (chunks + span - 1) / span;
+  const int out_stride = int(min(int64_t(group) * stride, int64_t(k_pad)));
+  const uint64_t* src = src_all + b * row_len + int64_t(g) * group * stride;
+  uint64_t* dst = dst_all + b * row_len + int64_t(g) * out_stride;
+
+  const uint64_t* res = src;
+  if (kInSmem) {
+    uint64_t* s = reinterpret_cast<uint64_t*>(smem);
+    res = merge_in_smem(src, s, s + group * stride, n, stride, span, chunks,
+                        kc, k_pad);
+  } else if (n > 1) {
+    merge_level(src, dst, n, stride, span, chunks, kc, k_pad);
+    __syncthreads();
+    res = dst;
+  }
+  if (gridDim.y == 1) {
+    write_result(res, b, k_pad, packed, vals, ids);
+  } else if (res != dst) {
+    const int len = list_len(0, chunks, chunks, kc, k_pad);
+    for (int r = threadIdx.x; r < len; r += kThreads) dst[r] = res[r];
+  }
+}
+
+// Stage 2's first two rounds in one launch, where the second is one group
+// in shared memory. grid = (b_pad, n_groups), block = kThreads; src_all
+// holds stage 1's lists (span 1). CTA (b, g) merges its group into list g
+// of dst_all as topk_merge_round does, fences, and takes a ticket from row
+// b's counter (zeroed by stage 1); the CTA that draws the row's last
+// ticket merges the row's n_groups lists, read back from dst_all, into
+// the result. Shared memory: 2 * half keys, half = max(group * kc,
+// n_groups * min(group * kc, k_pad)).
+__global__ void __launch_bounds__(kThreads, kMergeCtasPerSm)
+topk_merge_ticket(const uint64_t* __restrict__ src_all,
+                  uint64_t* __restrict__ dst_all, int64_t row_len,
+                  int n_chunks, int kc, int k_pad, int group,
+                  unsigned* __restrict__ tickets, float* __restrict__ packed,
+                  float* __restrict__ vals, int* __restrict__ ids) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ bool last;
+  const int64_t b = blockIdx.x;
+  const int g = blockIdx.y, n_groups = gridDim.y;
+  const int chunks = min(group, n_chunks - g * group);
+  const int out_stride = min(group * kc, k_pad);
+  const int half = max(group * kc, n_groups * out_stride);
+  uint64_t* s = reinterpret_cast<uint64_t*>(smem);
+  const uint64_t* res =
+      merge_in_smem(src_all + b * row_len + int64_t(g) * group * kc, s,
+                    s + half, chunks, kc, 1, chunks, kc, k_pad);
+  uint64_t* row = dst_all + b * row_len;
+  const int len = list_len(0, chunks, chunks, kc, k_pad);
+  for (int r = threadIdx.x; r < len; r += kThreads)
+    row[int64_t(g) * out_stride + r] = res[r];
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    last = atomicAdd(tickets + b, 1u) == unsigned(n_groups - 1);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // the row's lists, past this CTA's L1 (other SMs wrote them)
+  const int size = (n_groups - 1) * out_stride +
+                   list_len(n_groups - 1, group, n_chunks, kc, k_pad);
+  for (int e = threadIdx.x; e < size; e += kThreads)
+    s[half + e] = __ldcg(row + e);
+  __syncthreads();
+  res = merge_in_smem(s + half, s, s + half, n_groups, out_stride, group,
+                      n_chunks, kc, k_pad);
+  write_result(res, b, k_pad, packed, vals, ids);
 }
 
 template <int QT>
-cudaError_t launch_partial(const float* q, const int* rows, int64_t q_rows,
-                           int b_pad, const float* items, int64_t n_items,
-                           int dim, int64_t n_total, int kc, int n_chunks,
-                           uint64_t* ws, cudaStream_t stream) {
+cudaError_t launch_stage1(const float* q, const int* rows, int64_t q_rows,
+                          int b_pad, const float* items, int64_t n_items,
+                          int dim, int64_t n_total, int kc, int n_chunks,
+                          uint64_t* ws, unsigned* tickets,
+                          cudaStream_t stream) {
   dim3 grid(n_chunks, b_pad / QT);
   if (kc <= kSelMax)
-    topk_select<QT><<<grid, kThreads, select_smem_bytes<QT>(), stream>>>(
-        q, rows, q_rows, items, n_items, dim, n_total, kc, n_chunks, ws);
+    topk_select<QT><<<grid, kThreads, ring_smem_bytes<QT>(), stream>>>(
+        q, rows, q_rows, items, n_items, dim, n_total, kc, n_chunks, ws,
+        tickets);
   else
-    topk_partial<QT><<<grid, kThreads, partial_smem_bytes<QT>(), stream>>>(
-        q, rows, q_rows, items, n_items, dim, n_total, kc, n_chunks, ws);
+    topk_sort<QT><<<grid, kThreads, ring_smem_bytes<QT>(), stream>>>(
+        q, rows, q_rows, items, n_items, dim, n_total, kc, n_chunks, ws,
+        tickets);
   return cudaGetLastError();
+}
+
+// Lists a merge CTA takes this round: all that are left once they fit the
+// ceiling (in the first round only if the rows alone come within 3/4 of
+// one CTA an SM); else as many as fit kMergeTarget, in the first round no
+// more than leave one CTA an SM, and at least 2.
+// tests/test_torch_topk_merge.py::merge_plan mirrors this rule and
+// launch_merge's choice of a fused launch.
+int merge_group(int n_lists, int stride, int b_pad, bool first) {
+  const int64_t per_list = 2 * int64_t(stride) * int64_t(sizeof(uint64_t));
+  const bool filled = !first || 4 * int64_t(b_pad) >= 3 * int64_t(g_sm_count);
+  if (filled && n_lists * per_list <= kMergeSmemMax) return n_lists;
+  int64_t g = kMergeTarget / per_list;
+  if (!filled) {
+    const int64_t want = (g_sm_count + b_pad - 1) / b_pad;
+    g = g < n_lists / want ? g : n_lists / want;
+  }
+  const int64_t floor = (n_lists + kMaxGroups - 1) / kMaxGroups;
+  g = g > floor ? g : floor;
+  g = g > 2 ? g : 2;
+  return int(g < n_lists ? g : n_lists);
+}
+
+// Merge CTAs of `smem` bytes that fit an SM at once.
+int merge_ctas_per_sm(int64_t smem) {
+  const int64_t n = g_smem_per_sm / (smem + g_smem_reserved);
+  return int(n < kMergeCtasPerSm ? n : kMergeCtasPerSm);
+}
+
+cudaError_t launch_merge(uint64_t* lists, uint64_t* spare, unsigned* tickets,
+                         int b_pad, int n_chunks, int kc, int k_pad,
+                         float* packed, float* vals, int* ids,
+                         cudaStream_t stream) {
+  const int64_t row_len = int64_t(n_chunks) * kc;
+  uint64_t* src = lists;
+  uint64_t* dst = spare;
+  int n_lists = n_chunks, stride = kc, span = 1;
+  for (bool first = true;; first = false) {
+    int group = merge_group(n_lists, stride, b_pad, first);
+    const int64_t smem = 2 * int64_t(group) * stride * sizeof(uint64_t);
+    const bool in_smem = smem <= kMergeSmemMax;
+    if (!in_smem) group = n_lists < 2 ? n_lists : 2;
+    const int n_groups = (n_lists + group - 1) / group;
+    if (n_groups > kMaxGroups) return cudaErrorInvalidValue;
+    dim3 grid(b_pad, n_groups);
+    if (first && in_smem && n_groups > 1) {
+      // one launch for two rounds when the second is one group and its
+      // shared memory costs the first round no CTA an SM
+      const int64_t next = int64_t(group) * kc < k_pad ? int64_t(group) * kc
+                                                        : k_pad;
+      const int64_t half = int64_t(group) * kc > n_groups * next
+                               ? int64_t(group) * kc : n_groups * next;
+      const int64_t fused = 2 * half * int64_t(sizeof(uint64_t));
+      if (merge_group(n_groups, int(next), b_pad, false) == n_groups &&
+          fused <= kMergeSmemMax &&
+          merge_ctas_per_sm(fused) >= merge_ctas_per_sm(smem)) {
+        topk_merge_ticket<<<grid, kThreads, size_t(fused), stream>>>(
+            src, dst, row_len, n_chunks, kc, k_pad, group, tickets, packed,
+            vals, ids);
+        return cudaGetLastError();
+      }
+    }
+    if (in_smem)
+      topk_merge_round<true><<<grid, kThreads, size_t(smem), stream>>>(
+          src, dst, row_len, n_chunks, kc, k_pad, span, stride, group,
+          packed, vals, ids);
+    else
+      topk_merge_round<false><<<grid, kThreads, 0, stream>>>(
+          src, dst, row_len, n_chunks, kc, k_pad, span, stride, group,
+          packed, vals, ids);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess || n_groups == 1) return err;
+    n_lists = n_groups;
+    span *= group;
+    stride = int(int64_t(group) * stride < k_pad ? int64_t(group) * stride
+                                                 : k_pad);
+    uint64_t* tmp = src; src = dst; dst = tmp;
+  }
 }
 
 }  // namespace
@@ -488,32 +698,58 @@ cudaError_t launch_partial(const float* q, const int* rows, int64_t q_rows,
 extern "C" {
 
 // Workspace size in 64-bit keys for one call: two [b_pad, n_chunks, kc]
-// buffers (stage-1 lists and the merge's ping-pong partner).
+// buffers (stage-1 lists and the merge rounds' ping-pong partner), then
+// the merge's b_pad 32-bit row tickets.
 long long pio_topk_workspace(int b_pad, long long n_items, int k_pad) {
   const long long n_chunks = (n_items + kChunk - 1) / kChunk;
   const long long kc = k_pad < kChunk ? k_pad : kChunk;
-  return 2LL * b_pad * n_chunks * kc;
+  return 2LL * b_pad * n_chunks * kc + (b_pad + 1) / 2;
 }
 
-// Raises the dynamic shared-memory ceilings; call once after loading.
+// Raises the dynamic shared-memory ceilings and reads the current device's
+// SMs and their shared memory; call once after loading.
 int pio_topk_init() {
-  cudaError_t err = cudaFuncSetAttribute(
-      topk_partial<32>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      partial_smem_bytes<32>());
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return int(err);
+  err = cudaDeviceGetAttribute(&g_sm_count, cudaDevAttrMultiProcessorCount,
+                               dev);
+  if (err != cudaSuccess) return int(err);
+  err = cudaDeviceGetAttribute(
+      &g_smem_per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (err != cudaSuccess) return int(err);
+  err = cudaDeviceGetAttribute(
+      &g_smem_reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
   if (err != cudaSuccess) return int(err);
   err = cudaFuncSetAttribute(topk_select<8>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             select_smem_bytes<8>());
+                             ring_smem_bytes<8>());
   if (err != cudaSuccess) return int(err);
   err = cudaFuncSetAttribute(topk_select<16>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             select_smem_bytes<16>());
+                             ring_smem_bytes<16>());
   if (err != cudaSuccess) return int(err);
   err = cudaFuncSetAttribute(topk_select<32>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             select_smem_bytes<32>());
+                             ring_smem_bytes<32>());
   if (err != cudaSuccess) return int(err);
-  err = cudaFuncSetAttribute(topk_merge<true>,
+  err = cudaFuncSetAttribute(topk_sort<8>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             ring_smem_bytes<8>());
+  if (err != cudaSuccess) return int(err);
+  err = cudaFuncSetAttribute(topk_sort<16>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             ring_smem_bytes<16>());
+  if (err != cudaSuccess) return int(err);
+  err = cudaFuncSetAttribute(topk_sort<32>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             ring_smem_bytes<32>());
+  if (err != cudaSuccess) return int(err);
+  err = cudaFuncSetAttribute(topk_merge_round<true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kMergeSmemMax);
+  if (err != cudaSuccess) return int(err);
+  err = cudaFuncSetAttribute(topk_merge_ticket,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              kMergeSmemMax);
   return int(err);
@@ -530,7 +766,7 @@ int pio_topk(const float* q, const int* rows, long long q_rows, int b_pad,
              int* ids, void* stream_ptr) {
   if (b_pad <= 0 || b_pad % 8 != 0 || dim <= 0 || dim % kSlab != 0 ||
       n_items <= 0 || n_items >= (1LL << 32) || k_pad <= 0 ||
-      k_pad > n_items || n_total > n_items)
+      k_pad > n_items || k_pad > (1 << 29) || n_total > n_items)
     return int(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int64_t n_chunks64 = (n_items + kChunk - 1) / kChunk;
@@ -539,27 +775,22 @@ int pio_topk(const float* q, const int* rows, long long q_rows, int b_pad,
   const int kc = k_pad < kChunk ? k_pad : kChunk;
   uint64_t* lists = reinterpret_cast<uint64_t*>(ws);
   uint64_t* spare = lists + int64_t(b_pad) * n_chunks * kc;
+  unsigned* tickets =
+      reinterpret_cast<unsigned*>(spare + int64_t(b_pad) * n_chunks * kc);
 
   cudaError_t err;
   if (b_pad % 32 == 0)
-    err = launch_partial<32>(q, rows, q_rows, b_pad, items, n_items, dim,
-                             n_total, kc, n_chunks, lists, stream);
+    err = launch_stage1<32>(q, rows, q_rows, b_pad, items, n_items, dim,
+                            n_total, kc, n_chunks, lists, tickets, stream);
   else if (b_pad % 16 == 0)
-    err = launch_partial<16>(q, rows, q_rows, b_pad, items, n_items, dim,
-                             n_total, kc, n_chunks, lists, stream);
+    err = launch_stage1<16>(q, rows, q_rows, b_pad, items, n_items, dim,
+                            n_total, kc, n_chunks, lists, tickets, stream);
   else
-    err = launch_partial<8>(q, rows, q_rows, b_pad, items, n_items, dim,
-                            n_total, kc, n_chunks, lists, stream);
+    err = launch_stage1<8>(q, rows, q_rows, b_pad, items, n_items, dim,
+                           n_total, kc, n_chunks, lists, tickets, stream);
   if (err != cudaSuccess) return int(err);
-
-  const int64_t merge_smem = 2 * int64_t(n_chunks) * kc * sizeof(uint64_t);
-  if (merge_smem <= kMergeSmemMax)
-    topk_merge<true><<<b_pad, kThreads, size_t(merge_smem), stream>>>(
-        lists, spare, n_chunks, kc, k_pad, packed, vals, ids);
-  else
-    topk_merge<false><<<b_pad, kThreads, 0, stream>>>(
-        lists, spare, n_chunks, kc, k_pad, packed, vals, ids);
-  return int(cudaGetLastError());
+  return int(launch_merge(lists, spare, tickets, b_pad, n_chunks, kc, k_pad,
+                          packed, vals, ids, stream));
 }
 
 }  // extern "C"

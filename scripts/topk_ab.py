@@ -3,7 +3,9 @@ source, and as the compiler built it.
 
     python3 scripts/topk_ab.py [--resources] [--old OLD.cu ...]
                                [--shapes topk_b1,topk_b8,topk_b128,rows_b8,
-                                         rows_b128,topk_b64_k64,unpacked_b8]
+                                         rows_b128,topk_b64_k64,
+                                         topk_b128_k64,topk_b128_k1000,
+                                         rows_b8_k104,unpacked_b8]
 
 ``--old`` (repeatable) names an earlier ``topk.cu``, for example
 ``git show <rev>:predictionio_tpu_torch/csrc/topk.cu`` written under
@@ -47,14 +49,17 @@ from scripts.attn_bwd_ab import (  # noqa: E402
 
 #: name -> (entry point, batch, k_pad, catalog): the plain entry at the
 #: serving batches, the fused gather at the serving buckets b_pad 8 and
-#: 128 (num 20 -> k_pad 24), the bitonic path (k_pad 64) and the two-buffer
-#: output
+#: 128 (num 20 -> k_pad 24), the sort path (k_pad > 32: 64, 1000, and
+#: num 100 -> k_pad 104 at the 8-row bucket) and the two-buffer output
 SHAPES = {"topk_b1": ("topk", 1, 16, "ml20m"),
           "topk_b8": ("topk", 8, 16, "ml20m"),
           "topk_b128": ("topk", 128, 16, "ml20m"),
           "rows_b8": ("topk_rows", 8, 24, "ml20m"),
           "rows_b128": ("topk_rows", 128, 24, "ml20m"),
           "topk_b64_k64": ("topk", 64, 64, "ml20m"),
+          "topk_b128_k64": ("topk", 128, 64, "ml20m"),
+          "topk_b128_k1000": ("topk", 128, 1000, "ml20m"),
+          "rows_b8_k104": ("topk_rows", 8, 104, "ml20m"),
           "unpacked_b8": ("topk", 8, 16, "big")}
 
 
@@ -175,18 +180,21 @@ def compare(olds: dict, name: str, card: str, cats: dict) -> bool:
     return bitwise
 
 
-#: kernel names: topk_partial<QT>, topk_select<QT>, topk_merge<in smem>
-KERNEL = re.compile(r"(topk_partial|topk_select|topk_merge)I(?:Li(\d+)E|"
-                    r"Lb([01])E)")
+#: kernel names: topk_select<QT>, topk_sort<QT>, topk_merge_round<in smem>,
+#: topk_merge_ticket (and an earlier source's topk_partial<QT>,
+#: topk_merge<in smem>)
+KERNEL = re.compile(r"(topk_partial|topk_select|topk_sort|topk_merge_round|"
+                    r"topk_merge_ticket|topk_merge)(?:I(?:Li(\d+)E|"
+                    r"Lb([01])E))?")
 
 
 def dyn_smem(kind: str, qt: int | None) -> int | None:
-    """Stage 1's dynamic shared memory, as csrc/topk.cu's
-    partial_smem_bytes / select_smem_bytes compute it (the merge's depends
-    on the call)."""
+    """Stage 1's dynamic shared memory, as csrc/topk.cu's ring_smem_bytes
+    (and an earlier source's partial_smem_bytes) compute it (the merge's
+    depends on the call)."""
     if kind == "topk_partial":
         return 4 * qt * 32 + max(256 * 33 * 4, qt * 256 * 8)
-    if kind == "topk_select":
+    if kind in ("topk_select", "topk_sort"):
         return 2 * (256 + qt) * 36 * 4
     return None
 
