@@ -27,11 +27,12 @@ no card is visible). It imports nothing of JAX or of ``predictionio_tpu``.
    version and ``torch.topk(q @ items.T, k)``, and device time by kernel
    (stage 1 against the merge rounds) at ``topk`` B 128 (k 10, 64, 1000)
    and ``topk_rows`` B 8 (k 20, 100) and 128. Stage 1's ``topk_sort`` at
-   B 128 k 64 and the merge at ``topk_rows`` B 8 k 20 (its two rounds in
-   one ``topk_merge_ticket`` launch) are each timed beside a plain version
-   of their own (the kernel's 64-bit keys in torch: each chunk's sorted
-   best, then a sort of the row's lists, whose decoded result must equal
-   ``topk_reference``) and ``torch.topk``.
+   ``topk_rows`` B 8 k 100 (phase 3b's shape) and B 128 k 64, and the
+   merge at ``topk_rows`` B 8 k 20 (two ``topk_merge_round`` launches) are
+   each timed beside a plain version of their own (the kernel's 64-bit
+   keys in torch: each chunk's sorted best, then a sort of the row's
+   lists, whose decoded result must equal ``topk_reference``) and
+   ``torch.topk``.
 3. Serving: an ML-20M-shaped ALS model (138,493 x 64 users, 26,744 x 64
    items, seeded random factors / sqrt(64)) deployed through the port's
    template, ``Deployed`` (prewarm on) and ``EngineServer``, behind
@@ -173,8 +174,8 @@ trained ALS model's serving path (phase 7e), the storage-deployed path
 (phase 8) and the deployed server of the CLI quickstart (phase 9) are
 each driven with every launch count set to 0 just before and read just
 after. Before the last line it prints one JSON object with a record per
-kernel entry point, and for top-k's ``topk_sort`` (launched by every
-phase-3b call) and merge rounds (by every call of phases 3 and 3b):
+kernel entry point, and for top-k's ``topk_sort`` (its launches in phase
+3b) and merge rounds (``topk_merge_round``, its launches in phase 3):
 launches on its main path, error, times and bound; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -456,8 +457,9 @@ def merge_case(name, q, items, n_total, call: dict) -> dict:
 
 
 def stage1_record(call: dict, q, items, n_total: int) -> dict:
-    """Stage 1 (``topk_sort`` at k_pad > 32) at the timed ``topk`` fixture
-    ``call``: its device time from the ``stage_ms`` split, its plain version
+    """Stage 1 (``topk_sort`` at k_pad > 32) at the timed fixture ``call``
+    of queries ``q`` (a ``topk_rows`` fixture's gathered rows): its device
+    time from the ``stage_ms`` split, its plain version
     (the scores, the keys and each chunk's sorted best, ``chunk_lists``)
     and ``torch.topk`` of each chunk's scores; the bound reads the queries
     and the catalog, writes the lists and does 2*B*N*D f32 FLOP."""
@@ -476,9 +478,6 @@ def stage1_record(call: dict, q, items, n_total: int) -> dict:
             "plain_ms": device_ms(plain), "library_ms": device_ms(library),
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-
-
-# -- phase 2 ------------------------------------------------------------
 
 
 # -- phase 2 ------------------------------------------------------------
@@ -585,11 +584,13 @@ def phase_kernels(dev, *, n_items=N_ITEMS, n_users=N_USERS, rank=RANK,
             sel = sel.contiguous().to(dev)
             rec["stage_ms"] = stage_ms(lambda rec=rec, sel=sel: (
                 kernels.topk_rows(sel, qtab, items, n_items, rec["k_pad"])))
-        # the merge rounds at the 8-row bucket against their plain version
+        # topk_sort at phase 3b's shape, and the merge rounds at the 8-row
+        # bucket, against their plain versions
         rows8 = rows[4:12].contiguous().to(dev)
         ok = (rows8 >= 0) & (rows8 < qtab.shape[0])
         q8 = qtab[torch.where(ok, rows8, 0).long()].masked_fill(
             ~ok[:, None], 0.0)
+        recs[-1]["stage1"] = stage1_record(recs[-1], q8, items, n_items)
         recs.append(merge_case("merge rows B=8 k=20", q8, items, n_items,
                                recs[-3]))
     del qtab
@@ -613,8 +614,9 @@ def phase_kernels(dev, *, n_items=N_ITEMS, n_users=N_USERS, rank=RANK,
         recs.append(kernel_case(f"ties k={k}", torch.from_numpy(tq).to(dev),
                                 torch.from_numpy(tied).to(dev), len(tie), k,
                                 bitwise=True))
-    # kc 256 on both sides of k 256 (three merge rounds at b_pad 8), and a
-    # one-chunk catalog (one list, one round); a generator of their own
+    # kc 256 on both sides of k 256 (two merge rounds at b_pad 8 and 128),
+    # and a one-chunk catalog (one list, one round); a generator of their
+    # own
     rng3 = np.random.default_rng(SEED + 2)
     for b in (8, 128):
         q = padded_queries(rng3, b, rank, items.shape[1], dev, scale)
@@ -1338,7 +1340,8 @@ def head_dim_bwd_case(dev, name, B, L, H, D, dtype, causal) -> dict:
     grads = torch.autograd.grad(o, leaves, do)
     moved = {key: kernels.LAUNCHES[key] - before[key] for key in before}
     n = int(dev.type == "cuda")
-    want_moved = {"topk": 0, "topk_rows": 0, "flash_attention": n,
+    want_moved = {"topk": 0, "topk_rows": 0, "topk_select": 0,
+                  "topk_sort": 0, "topk_merge": 0, "flash_attention": n,
                   "flash_attention_bwd_dkv": n, "flash_attention_bwd_dq": n}
     check(moved == want_moved,
           f"{name}: launches {moved}, want {want_moved}")
@@ -2677,7 +2680,8 @@ def main() -> int:
     server = build_server(dev)
     serving = phase_serving(dev, server)
     launches = dict(kernels.LAUNCHES)
-    check(launches["topk"] > 0 and launches["topk_rows"] > 0,
+    check(all(launches[key] > 0 for key in (
+              "topk", "topk_rows", "topk_select", "topk_merge")),
           f"a kernel of the ALS serving path never launched: {launches}")
     print("[serving] " + json.dumps({**serving, "launches": launches,
                                      "card": smi}), flush=True)
@@ -2688,8 +2692,10 @@ def main() -> int:
     reset_launches()
     wide = phase_wide_serving(dev, server)
     wide_launches = dict(kernels.LAUNCHES)
-    check(wide_launches["topk_rows"] > 0,
-          f"topk_rows never launched at num 100: {wide_launches}")
+    check(wide_launches["topk_sort"] == wide_launches["topk_rows"] > 0
+          and wide_launches["topk_merge"] > 0,
+          f"topk_sort or the merge never launched at num 100: "
+          f"{wide_launches}")
     print("[serving-num100] " + json.dumps({
         **wide, "launches": wide_launches, "card": smi}), flush=True)
     del server
@@ -2808,14 +2814,11 @@ def main() -> int:
                       by_case["ml20m B=128 k=10"]),
         kernel_record("topk_rows", launches["topk_rows"],
                       by_case["ml20m rows B=8 k=20"]),
-        # stage 1 past k_pad 32 (every launch of phase 3b), and the merge
-        # (topk_merge_round or topk_merge_ticket: every call of phases 3
-        # and 3b launches one or more)
-        kernel_record("topk_sort", wide_launches["topk_rows"],
-                      by_case["ml20m B=128 k=64"]["stage1"]),
-        kernel_record("topk_merge",
-                      launches["topk"] + launches["topk_rows"]
-                      + wide_launches["topk_rows"],
+        # stage 1 past k_pad 32 on its path (phase 3b), and the merge
+        # rounds on theirs (phase 3), as pio_topk counted the launches
+        kernel_record("topk_sort", wide_launches["topk_sort"],
+                      by_case["ml20m rows B=8 k=100"]["stage1"]),
+        kernel_record("topk_merge", launches["topk_merge"],
                       by_case["merge rows B=8 k=20"]),
         kernel_record("flash_attention", seq_launches["flash_attention"],
                       by_attn[SERVING_CASE], source=FLASH_SOURCE,

@@ -47,14 +47,8 @@
 //     one CTA an SM unless the rows alone come within 3/4 of that; the
 //     lists left go into one last group once they fit 192 KB. A round
 //     whose two lists of k keys pass 192 KB merges pairs straight from the
-//     workspace. Where the plan is two rounds and the second one group,
-//     one launch of topk_merge_ticket runs both, unless sizing every CTA
-//     for the second round would fit fewer CTAs an SM: each CTA merges its
-//     group, then takes a ticket from its row's counter (zeroed by stage
-//     1), and the row's last CTA merges the row. That saves a launch at
-//     the 8-row serving bucket; at k 1000 (112 KB a CTA) it would cost a
-//     third of round 1's CTAs. No memset; the tickets' atomics order no
-//     data: keys are unique, so any correct merge gives the same bits.
+//     workspace. No atomics and no memset: keys are unique, so any correct
+//     merge gives the same bits.
 //
 // The key is the order-preserving bits of the f32 score above the bitwise NOT
 // of the id, so a larger key means a higher score, then a lower id, and keys
@@ -92,10 +86,7 @@ constexpr int kMaxGroups = 65535;            // grid.y of a merge round
 // share an SM; shared memory may let fewer
 constexpr int kMergeCtasPerSm = 2048 / kThreads;
 
-// the card's, read by pio_topk_init
-int g_sm_count = 132;                        // SMs
-int g_smem_per_sm = 233472;                  // shared memory an SM holds
-int g_smem_reserved = 1024;                  // an SM reserves per CTA
+int g_sm_count = 132;                        // SMs, read by pio_topk_init
 
 __device__ __forceinline__ uint64_t make_key(float score, uint32_t id) {
   uint32_t u = __float_as_uint(score);
@@ -287,8 +278,7 @@ __device__ __forceinline__ void lane_keys(const float (&acc)[kPerLane],
 }
 
 // Stage 1, kc <= kSelMax. grid = (n_chunks, b_pad / QT), block = kThreads;
-// ws: [b_pad, n_chunks, kc] keys, each list sorted descending; the first
-// chunk column zeroes the tile's merge tickets [b_pad]. After
+// ws: [b_pad, n_chunks, kc] keys, each list sorted descending. After
 // score_tile, kc rounds each take the warp's largest head: lane `round`
 // keeps it and the winning lane pops it.
 template <int QT>
@@ -296,7 +286,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 topk_select(const float* __restrict__ q, const int* __restrict__ rows,
             int64_t q_rows, const float* __restrict__ items, int64_t n_items,
             int dim, int64_t n_total, int kc, int n_chunks,
-            uint64_t* __restrict__ ws, unsigned* __restrict__ tickets) {
+            uint64_t* __restrict__ ws) {
   constexpr int RQ = QT / kWarps;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int64_t qrow[QT];
@@ -305,7 +295,6 @@ topk_select(const float* __restrict__ q, const int* __restrict__ rows,
                  reinterpret_cast<float*>(smem), qrow, acc);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int b0 = blockIdx.y * QT;
-  if (blockIdx.x == 0 && threadIdx.x < QT) tickets[b0 + threadIdx.x] = 0u;
   uint64_t key[RQ][kPerLane];
 #pragma unroll
   for (int r = 0; r < RQ; ++r) lane_keys(acc[r], n_total, key[r]);
@@ -405,7 +394,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 topk_sort(const float* __restrict__ q, const int* __restrict__ rows,
           int64_t q_rows, const float* __restrict__ items, int64_t n_items,
           int dim, int64_t n_total, int kc, int n_chunks,
-          uint64_t* __restrict__ ws, unsigned* __restrict__ tickets) {
+          uint64_t* __restrict__ ws) {
   constexpr int RQ = QT / kWarps;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int64_t qrow[QT];
@@ -414,7 +403,6 @@ topk_sort(const float* __restrict__ q, const int* __restrict__ rows,
                  reinterpret_cast<float*>(smem), qrow, acc);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int b0 = blockIdx.y * QT;
-  if (blockIdx.x == 0 && threadIdx.x < QT) tickets[b0 + threadIdx.x] = 0u;
   uint64_t* staged = reinterpret_cast<uint64_t*>(smem) + warp * kChunk;
 #pragma unroll
   for (int r = 0; r < RQ; ++r) {
@@ -550,68 +538,18 @@ topk_merge_round(const uint64_t* __restrict__ src_all,
   }
 }
 
-// Stage 2's first two rounds in one launch, where the second is one group
-// in shared memory. grid = (b_pad, n_groups), block = kThreads; src_all
-// holds stage 1's lists (span 1). CTA (b, g) merges its group into list g
-// of dst_all as topk_merge_round does, fences, and takes a ticket from row
-// b's counter (zeroed by stage 1); the CTA that draws the row's last
-// ticket merges the row's n_groups lists, read back from dst_all, into
-// the result. Shared memory: 2 * half keys, half = max(group * kc,
-// n_groups * min(group * kc, k_pad)).
-__global__ void __launch_bounds__(kThreads, kMergeCtasPerSm)
-topk_merge_ticket(const uint64_t* __restrict__ src_all,
-                  uint64_t* __restrict__ dst_all, int64_t row_len,
-                  int n_chunks, int kc, int k_pad, int group,
-                  unsigned* __restrict__ tickets, float* __restrict__ packed,
-                  float* __restrict__ vals, int* __restrict__ ids) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ bool last;
-  const int64_t b = blockIdx.x;
-  const int g = blockIdx.y, n_groups = gridDim.y;
-  const int chunks = min(group, n_chunks - g * group);
-  const int out_stride = min(group * kc, k_pad);
-  const int half = max(group * kc, n_groups * out_stride);
-  uint64_t* s = reinterpret_cast<uint64_t*>(smem);
-  const uint64_t* res =
-      merge_in_smem(src_all + b * row_len + int64_t(g) * group * kc, s,
-                    s + half, chunks, kc, 1, chunks, kc, k_pad);
-  uint64_t* row = dst_all + b * row_len;
-  const int len = list_len(0, chunks, chunks, kc, k_pad);
-  for (int r = threadIdx.x; r < len; r += kThreads)
-    row[int64_t(g) * out_stride + r] = res[r];
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0)
-    last = atomicAdd(tickets + b, 1u) == unsigned(n_groups - 1);
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  // the row's lists, past this CTA's L1 (other SMs wrote them)
-  const int size = (n_groups - 1) * out_stride +
-                   list_len(n_groups - 1, group, n_chunks, kc, k_pad);
-  for (int e = threadIdx.x; e < size; e += kThreads)
-    s[half + e] = __ldcg(row + e);
-  __syncthreads();
-  res = merge_in_smem(s + half, s, s + half, n_groups, out_stride, group,
-                      n_chunks, kc, k_pad);
-  write_result(res, b, k_pad, packed, vals, ids);
-}
-
 template <int QT>
 cudaError_t launch_stage1(const float* q, const int* rows, int64_t q_rows,
                           int b_pad, const float* items, int64_t n_items,
                           int dim, int64_t n_total, int kc, int n_chunks,
-                          uint64_t* ws, unsigned* tickets,
-                          cudaStream_t stream) {
+                          uint64_t* ws, cudaStream_t stream) {
   dim3 grid(n_chunks, b_pad / QT);
   if (kc <= kSelMax)
     topk_select<QT><<<grid, kThreads, ring_smem_bytes<QT>(), stream>>>(
-        q, rows, q_rows, items, n_items, dim, n_total, kc, n_chunks, ws,
-        tickets);
+        q, rows, q_rows, items, n_items, dim, n_total, kc, n_chunks, ws);
   else
     topk_sort<QT><<<grid, kThreads, ring_smem_bytes<QT>(), stream>>>(
-        q, rows, q_rows, items, n_items, dim, n_total, kc, n_chunks, ws,
-        tickets);
+        q, rows, q_rows, items, n_items, dim, n_total, kc, n_chunks, ws);
   return cudaGetLastError();
 }
 
@@ -619,8 +557,7 @@ cudaError_t launch_stage1(const float* q, const int* rows, int64_t q_rows,
 // ceiling (in the first round only if the rows alone come within 3/4 of
 // one CTA an SM); else as many as fit kMergeTarget, in the first round no
 // more than leave one CTA an SM, and at least 2.
-// tests/test_torch_topk_merge.py::merge_plan mirrors this rule and
-// launch_merge's choice of a fused launch.
+// tests/test_torch_topk_merge.py::merge_plan mirrors this rule.
 int merge_group(int n_lists, int stride, int b_pad, bool first) {
   const int64_t per_list = 2 * int64_t(stride) * int64_t(sizeof(uint64_t));
   const bool filled = !first || 4 * int64_t(b_pad) >= 3 * int64_t(g_sm_count);
@@ -636,15 +573,10 @@ int merge_group(int n_lists, int stride, int b_pad, bool first) {
   return int(g < n_lists ? g : n_lists);
 }
 
-// Merge CTAs of `smem` bytes that fit an SM at once.
-int merge_ctas_per_sm(int64_t smem) {
-  const int64_t n = g_smem_per_sm / (smem + g_smem_reserved);
-  return int(n < kMergeCtasPerSm ? n : kMergeCtasPerSm);
-}
-
-cudaError_t launch_merge(uint64_t* lists, uint64_t* spare, unsigned* tickets,
-                         int b_pad, int n_chunks, int kc, int k_pad,
-                         float* packed, float* vals, int* ids,
+// Launches the merge rounds; adds each launch to *rounds.
+cudaError_t launch_merge(uint64_t* lists, uint64_t* spare, int b_pad,
+                         int n_chunks, int kc, int k_pad, float* packed,
+                         float* vals, int* ids, int* rounds,
                          cudaStream_t stream) {
   const int64_t row_len = int64_t(n_chunks) * kc;
   uint64_t* src = lists;
@@ -658,23 +590,6 @@ cudaError_t launch_merge(uint64_t* lists, uint64_t* spare, unsigned* tickets,
     const int n_groups = (n_lists + group - 1) / group;
     if (n_groups > kMaxGroups) return cudaErrorInvalidValue;
     dim3 grid(b_pad, n_groups);
-    if (first && in_smem && n_groups > 1) {
-      // one launch for two rounds when the second is one group and its
-      // shared memory costs the first round no CTA an SM
-      const int64_t next = int64_t(group) * kc < k_pad ? int64_t(group) * kc
-                                                        : k_pad;
-      const int64_t half = int64_t(group) * kc > n_groups * next
-                               ? int64_t(group) * kc : n_groups * next;
-      const int64_t fused = 2 * half * int64_t(sizeof(uint64_t));
-      if (merge_group(n_groups, int(next), b_pad, false) == n_groups &&
-          fused <= kMergeSmemMax &&
-          merge_ctas_per_sm(fused) >= merge_ctas_per_sm(smem)) {
-        topk_merge_ticket<<<grid, kThreads, size_t(fused), stream>>>(
-            src, dst, row_len, n_chunks, kc, k_pad, group, tickets, packed,
-            vals, ids);
-        return cudaGetLastError();
-      }
-    }
     if (in_smem)
       topk_merge_round<true><<<grid, kThreads, size_t(smem), stream>>>(
           src, dst, row_len, n_chunks, kc, k_pad, span, stride, group,
@@ -684,7 +599,9 @@ cudaError_t launch_merge(uint64_t* lists, uint64_t* spare, unsigned* tickets,
           src, dst, row_len, n_chunks, kc, k_pad, span, stride, group,
           packed, vals, ids);
     const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess || n_groups == 1) return err;
+    if (err != cudaSuccess) return err;
+    ++*rounds;
+    if (n_groups == 1) return err;
     n_lists = n_groups;
     span *= group;
     stride = int(int64_t(group) * stride < k_pad ? int64_t(group) * stride
@@ -698,28 +615,21 @@ cudaError_t launch_merge(uint64_t* lists, uint64_t* spare, unsigned* tickets,
 extern "C" {
 
 // Workspace size in 64-bit keys for one call: two [b_pad, n_chunks, kc]
-// buffers (stage-1 lists and the merge rounds' ping-pong partner), then
-// the merge's b_pad 32-bit row tickets.
+// buffers (stage-1 lists and the merge rounds' ping-pong partner).
 long long pio_topk_workspace(int b_pad, long long n_items, int k_pad) {
   const long long n_chunks = (n_items + kChunk - 1) / kChunk;
   const long long kc = k_pad < kChunk ? k_pad : kChunk;
-  return 2LL * b_pad * n_chunks * kc + (b_pad + 1) / 2;
+  return 2LL * b_pad * n_chunks * kc;
 }
 
 // Raises the dynamic shared-memory ceilings and reads the current device's
-// SMs and their shared memory; call once after loading.
+// SM count; call once after loading.
 int pio_topk_init() {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return int(err);
   err = cudaDeviceGetAttribute(&g_sm_count, cudaDevAttrMultiProcessorCount,
                                dev);
-  if (err != cudaSuccess) return int(err);
-  err = cudaDeviceGetAttribute(
-      &g_smem_per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
-  if (err != cudaSuccess) return int(err);
-  err = cudaDeviceGetAttribute(
-      &g_smem_reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
   if (err != cudaSuccess) return int(err);
   err = cudaFuncSetAttribute(topk_select<8>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -748,10 +658,6 @@ int pio_topk_init() {
   err = cudaFuncSetAttribute(topk_merge_round<true>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              kMergeSmemMax);
-  if (err != cudaSuccess) return int(err);
-  err = cudaFuncSetAttribute(topk_merge_ticket,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kMergeSmemMax);
   return int(err);
 }
 
@@ -759,11 +665,13 @@ int pio_topk_init() {
 // rows). rows != null: query b is q row rows[b]; an out-of-range row scores as
 // a zero query. Writes packed [b_pad, 2 k_pad] f32 (scores, then ids as f32)
 // when `packed` is not null, else vals [b_pad, k_pad] f32 and ids
-// [b_pad, k_pad] int32. Returns a cudaError_t.
+// [b_pad, k_pad] int32. Adds the kernels it launched to launched[0]
+// (topk_select), launched[1] (topk_sort) and launched[2] (merge rounds).
+// Returns a cudaError_t.
 int pio_topk(const float* q, const int* rows, long long q_rows, int b_pad,
              const float* items, long long n_items, int dim, long long n_total,
              int k_pad, unsigned long long* ws, float* packed, float* vals,
-             int* ids, void* stream_ptr) {
+             int* ids, void* stream_ptr, int* launched) {
   if (b_pad <= 0 || b_pad % 8 != 0 || dim <= 0 || dim % kSlab != 0 ||
       n_items <= 0 || n_items >= (1LL << 32) || k_pad <= 0 ||
       k_pad > n_items || k_pad > (1 << 29) || n_total > n_items)
@@ -775,22 +683,21 @@ int pio_topk(const float* q, const int* rows, long long q_rows, int b_pad,
   const int kc = k_pad < kChunk ? k_pad : kChunk;
   uint64_t* lists = reinterpret_cast<uint64_t*>(ws);
   uint64_t* spare = lists + int64_t(b_pad) * n_chunks * kc;
-  unsigned* tickets =
-      reinterpret_cast<unsigned*>(spare + int64_t(b_pad) * n_chunks * kc);
 
   cudaError_t err;
   if (b_pad % 32 == 0)
     err = launch_stage1<32>(q, rows, q_rows, b_pad, items, n_items, dim,
-                            n_total, kc, n_chunks, lists, tickets, stream);
+                            n_total, kc, n_chunks, lists, stream);
   else if (b_pad % 16 == 0)
     err = launch_stage1<16>(q, rows, q_rows, b_pad, items, n_items, dim,
-                            n_total, kc, n_chunks, lists, tickets, stream);
+                            n_total, kc, n_chunks, lists, stream);
   else
     err = launch_stage1<8>(q, rows, q_rows, b_pad, items, n_items, dim,
-                           n_total, kc, n_chunks, lists, tickets, stream);
+                           n_total, kc, n_chunks, lists, stream);
   if (err != cudaSuccess) return int(err);
-  return int(launch_merge(lists, spare, tickets, b_pad, n_chunks, kc, k_pad,
-                          packed, vals, ids, stream));
+  ++launched[kc <= kSelMax ? 0 : 1];
+  return int(launch_merge(lists, spare, b_pad, n_chunks, kc, k_pad, packed,
+                          vals, ids, launched + 2, stream));
 }
 
 }  // extern "C"

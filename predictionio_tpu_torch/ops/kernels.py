@@ -9,9 +9,8 @@
   f32 register tiles: for ``k_pad <= 32`` by a warp selection
   (``topk_select``), else by a warp-wide bitonic sort in registers
   (``topk_sort``); stage 2 merges the chunk lists in rounds spread over
-  the card (``topk_merge_round``; the first two in one
-  ``topk_merge_ticket`` launch where that costs no occupancy). One call
-  of either entry point runs both stages.
+  the card (``topk_merge_round``, one launch a round). One call of either
+  entry point runs both stages.
 - ``csrc/flash_attn.cu`` replaces jax's stock Pallas TPU flash-attention
   forward (``_flash_attention_kernel``), which
   ``predictionio_tpu/parallel/ring_attention.py::flash_attention`` calls.
@@ -37,7 +36,9 @@ plain C interface and include no PyTorch header, which keeps the build to
 seconds. The build runs under a lock because the serving micro-batcher
 calls from several threads. Every launch goes on the current stream and
 raises if the build or the launch fails. ``LAUNCHES`` counts kernel
-launches by entry point and nothing else.
+launches and nothing else: by entry point (a top-k call counts once), and
+top-k's by kernel as ``pio_topk`` reports them (``topk_select``,
+``topk_sort``, and ``topk_merge``, one a merge round).
 """
 
 from __future__ import annotations
@@ -58,8 +59,12 @@ SOURCES = tuple(_PKG / "csrc" / name for name in (
 BUILD_DIR = _PKG / "_build"
 
 #: Kernel launches per entry point (plain integers; reset by assigning 0).
-LAUNCHES = {"topk": 0, "topk_rows": 0, "flash_attention": 0,
+LAUNCHES = {"topk": 0, "topk_rows": 0, "topk_select": 0, "topk_sort": 0,
+            "topk_merge": 0, "flash_attention": 0,
             "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0}
+
+#: pio_topk's launched[] slots, in order
+_TOPK_KERNELS = ("topk_select", "topk_sort", "topk_merge")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -86,7 +91,8 @@ def build() -> ctypes.CDLL:
         lib.pio_topk_workspace.restype = ll
         lib.pio_topk_init.argtypes = []
         lib.pio_topk_init.restype = i
-        lib.pio_topk.argtypes = [p, p, ll, i, p, ll, i, ll, i, p, p, p, p, p]
+        lib.pio_topk.argtypes = [p, p, ll, i, p, ll, i, ll, i, p, p, p, p, p,
+                                 p]
         lib.pio_topk.restype = i
         lib.pio_flash_attn_init.argtypes = []
         lib.pio_flash_attn_init.restype = i
@@ -109,9 +115,9 @@ def build() -> ctypes.CDLL:
         return lib
 
 
-def _count(name: str) -> None:
+def _count(name: str, n: int = 1) -> None:
     with _lock:
-        LAUNCHES[name] += 1
+        LAUNCHES[name] += n
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
@@ -155,10 +161,13 @@ def _launch(name, q, rows, items, n_total: int, k_pad: int):
         out = (vals, ids)
         ptrs = (None, vals.data_ptr(), ids.data_ptr())
     stream = torch.cuda.current_stream(dev).cuda_stream
+    launched = (ctypes.c_int * len(_TOPK_KERNELS))()
     err = lib.pio_topk(
         q.data_ptr(), None if rows is None else rows.data_ptr(), q.shape[0],
         b_pad, items.data_ptr(), n_items, dim, n_total, k_pad,
-        ws.data_ptr(), *ptrs, stream)
+        ws.data_ptr(), *ptrs, stream, launched)
+    for kernel, n in zip(_TOPK_KERNELS, launched):
+        _count(kernel, n)
     if err:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     _count(name)

@@ -64,20 +64,22 @@ SHAPES = {"topk_b1": ("topk", 1, 16, "ml20m"),
 
 
 def build_old(path: Path, n: int):
-    """Build an earlier source as library ``n``: (entry, workspace size)."""
+    """Build an earlier source as library ``n``: (entry, workspace size,
+    whether the entry takes the trailing ``launched`` counts)."""
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     prefix = f"pio_old{n}_topk"
+    counts = "int* launched)" in path.read_text()
     lib = build_renamed(path, f"pio_topk_old{n}", "pio_topk", prefix,
-                        {"": [p, p, ll, i, p, ll, i, ll, i, p, p, p, p, p]},
-                        init="_init")
+                        {"": [p, p, ll, i, p, ll, i, ll, i, p, p, p, p, p]
+                         + ([p] if counts else [])}, init="_init")
     ws = getattr(lib, prefix + "_workspace")
     ws.argtypes, ws.restype = [i, ll, i], ll
-    return getattr(lib, prefix), ws
+    return getattr(lib, prefix), ws, counts
 
 
 def old_call(old, q, rows, items, n_total: int, k_pad: int):
     """``kernels._launch`` through an earlier library."""
-    fn, ws_size = old
+    fn, ws_size, counts = old
     dev = items.device
     b_pad = q.shape[0] if rows is None else rows.shape[0]
     n_items, dim = items.shape
@@ -91,10 +93,11 @@ def old_call(old, q, rows, items, n_total: int, k_pad: int):
         ids = torch.empty(b_pad, k_pad, dtype=torch.int32, device=dev)
         out = (vals, ids)
         ptrs = (None, vals.data_ptr(), ids.data_ptr())
+    launched = [(ctypes.c_int * 3)()] if counts else []
     err = fn(q.data_ptr(), None if rows is None else rows.data_ptr(),
              q.shape[0], b_pad, items.data_ptr(), n_items, dim, n_total,
              k_pad, ws.data_ptr(), *ptrs,
-             torch.cuda.current_stream(dev).cuda_stream)
+             torch.cuda.current_stream(dev).cuda_stream, *launched)
     if err:
         raise RuntimeError(f"old kernel launch failed: cudaError {err}")
     return out
@@ -180,9 +183,9 @@ def compare(olds: dict, name: str, card: str, cats: dict) -> bool:
     return bitwise
 
 
-#: kernel names: topk_select<QT>, topk_sort<QT>, topk_merge_round<in smem>,
-#: topk_merge_ticket (and an earlier source's topk_partial<QT>,
-#: topk_merge<in smem>)
+#: kernel names: topk_select<QT>, topk_sort<QT>, topk_merge_round<in smem>
+#: (and earlier sources' topk_partial<QT>, topk_merge<in smem>,
+#: topk_merge_ticket)
 KERNEL = re.compile(r"(topk_partial|topk_select|topk_sort|topk_merge_round|"
                     r"topk_merge_ticket|topk_merge)(?:I(?:Li(\d+)E|"
                     r"Lb([01])E))?")

@@ -266,7 +266,8 @@ def test_head_dim_routing_on_the_card(cuda_device, D, dtype):
                                 leaves, do)
     torch.cuda.synchronize()
     moved = {key: kernels.LAUNCHES[key] - before[key] for key in before}
-    assert moved == {"topk": 0, "topk_rows": 0, "flash_attention": 2,
+    assert moved == {"topk": 0, "topk_rows": 0, "topk_select": 0,
+                     "topk_sort": 0, "topk_merge": 0, "flash_attention": 2,
                      "flash_attention_bwd_dkv": 1,
                      "flash_attention_bwd_dq": 1}
     want = tra.blockwise_attention(q, k, v, causal=True)

@@ -178,26 +178,20 @@ def test_staging_slots_turn_the_sort_around():
 # -- the merge rounds ------------------------------------------------------
 
 
-#: ``csrc/topk.cu``'s kMergeTarget, kMergeSmemMax, kMaxGroups and
-#: kMergeCtasPerSm: a merge CTA's aimed-for and largest shared memory in
-#: bytes, the largest grid.y, and the merge CTAs an SM's threads hold
-MERGE_TARGET, MERGE_SMEM_MAX, MAX_GROUPS, MERGE_CTAS = (64 << 10, 192 << 10,
-                                                        65535, 8)
+#: ``csrc/topk.cu``'s kMergeTarget, kMergeSmemMax and kMaxGroups: a merge
+#: CTA's aimed-for and largest shared memory in bytes, and the largest
+#: grid.y
+MERGE_TARGET, MERGE_SMEM_MAX, MAX_GROUPS = 64 << 10, 192 << 10, 65535
 
 
-def merge_plan(b_pad: int, n_items: int, k_pad: int, n_sm: int = 132,
-               smem_per_sm: int = 233472,
-               smem_reserved: int = 1024) -> list[dict]:
-    """The merge rounds of one ``topk`` call on a card of ``n_sm`` SMs
-    (``smem_per_sm`` bytes of shared memory each, ``smem_reserved`` of it
-    taken per CTA: an H100's), as ``csrc/topk.cu::launch_merge`` and
-    ``merge_group`` plan them (keep the two equal): per round the lists a
-    CTA merges (``group``), the CTAs a row (``n_groups``), the input
-    lists' stride, the chunks each covers (``span``), whether the group
-    runs in shared memory, and whether the round shares one launch with
-    the next (``fused``: a two-round plan whose second round is one group,
-    when the launch's larger shared memory lets as many CTAs share an SM
-    as the first round's alone). A round's group is every list left once
+def merge_plan(b_pad: int, n_items: int, k_pad: int,
+               n_sm: int = 132) -> list[dict]:
+    """The merge rounds of one ``topk`` call on a card of ``n_sm`` SMs (an
+    H100's), as ``csrc/topk.cu::launch_merge`` and ``merge_group`` plan
+    them (keep the two equal), one launch each: per round the lists a CTA
+    merges (``group``), the CTAs a row (``n_groups``), the input lists'
+    stride, the chunks each covers (``span``) and whether the group runs
+    in shared memory. A round's group is every list left once
     they fit 192 KB (in the first round only if ``b_pad`` is at least 3/4
     of ``n_sm``); else as many as fit 64 KB, in the first round no more
     than leave one CTA an SM, at least 2, and enough that ``n_groups``
@@ -214,9 +208,6 @@ def merge_plan(b_pad: int, n_items: int, k_pad: int, n_sm: int = 132,
             g = min(g, n_lists // -(-n_sm // b_pad))
         return min(max(g, -(-n_lists // MAX_GROUPS), 2), n_lists)
 
-    def ctas(smem: int) -> int:
-        return min(smem_per_sm // (smem + smem_reserved), MERGE_CTAS)
-
     n_lists = -(-n_items // CHUNK)
     stride = min(k_pad, CHUNK)
     span, rounds = 1, []
@@ -227,18 +218,12 @@ def merge_plan(b_pad: int, n_items: int, k_pad: int, n_sm: int = 132,
         if not in_smem:
             group = min(n_lists, 2)
         n_groups = -(-n_lists // group)
-        rnd = {"group": group, "n_groups": n_groups, "stride": stride,
-               "span": span, "in_smem": in_smem, "fused": False}
-        rounds.append(rnd)
+        rounds.append({"group": group, "n_groups": n_groups,
+                       "stride": stride, "span": span, "in_smem": in_smem})
         if n_groups == 1:
             return rounds
-        nxt = min(group * stride, k_pad)
-        if len(rounds) == 1 and in_smem:
-            fused = 2 * max(group * stride, n_groups * nxt) * 8
-            rnd["fused"] = (group_of(n_groups, nxt, False) == n_groups
-                            and fused <= MERGE_SMEM_MAX
-                            and ctas(fused) >= ctas(smem))
-        n_lists, span, stride = n_groups, span * group, nxt
+        n_lists, span, stride = n_groups, span * group, min(group * stride,
+                                                            k_pad)
 
 
 def list_len(li: int, span: int, chunks: int, kc: int, k_pad: int) -> int:
@@ -256,25 +241,17 @@ def merge_rounds(lists: np.ndarray, b_pad: int, k_pad: int,
     """``launch_merge`` on one row of stage-1 lists ``[n_chunks, kc]``
     (each sorted descending) under ``merge_plan``; returns the row's
     ``k_pad`` result keys. Holds every write inside the row and the CTA's
-    shared memory (half of it for each ping-pong buffer; a fused launch
-    sizes both of its rounds for the larger), on a slot nothing else
-    wrote, and every list a group hands on sorted, of its length and free
-    of unwritten slots."""
+    shared memory (half of it for each ping-pong buffer), on a slot
+    nothing else wrote, and every list a group hands on sorted, of its
+    length and free of unwritten slots."""
     n_chunks, kc = lists.shape
     row_len = n_chunks * kc
     src = lists.reshape(row_len).copy()
-    plan = merge_plan(b_pad, n_items, k_pad)
-    fused = None  # a fused launch's half, kept for its second round
-    for rnd in plan:
+    for rnd in merge_plan(b_pad, n_items, k_pad):
         group, n_groups = rnd["group"], rnd["n_groups"]
         stride, span = rnd["stride"], rnd["span"]
         out_stride = min(group * stride, k_pad)
-        if rnd["fused"]:
-            fused = cap = max(group * stride, n_groups * out_stride)
-        elif fused is not None:
-            cap, fused = fused, None
-        else:
-            cap = group * stride
+        cap = group * stride
         dst = np.zeros(row_len, np.uint64)
         for g in range(n_groups):
             chunks = min(group * span, n_chunks - g * group * span)
@@ -388,51 +365,37 @@ def test_plan_merges_long_lists_from_the_workspace():
 
 def test_plan_spreads_the_serving_bucket():
     """The 8-row serving bucket at the ML-20M catalog: 18 groups of 6
-    lists a row (144 CTAs), then one group of 18, in one launch, against
-    one CTA a row in a single CTA's seven levels before."""
+    lists a row (144 CTAs), then one group of 18, against one CTA a row
+    in a single CTA's seven levels before."""
     plan = merge_plan(8, 27136, 24)
-    assert [(r["group"], r["n_groups"], r["fused"]) for r in plan] == [
-        (6, 18, True), (18, 1, False)]
+    assert [(r["group"], r["n_groups"]) for r in plan] == [(6, 18), (18, 1)]
 
 
-#: (b_pad, n_items, k_pad) -> whether the two rounds share a launch: the
-#: ticket costs no CTA an SM at the 8-row buckets (k_pad 16, 24), at kc
-#: 256 into k_pad 256 and on the unpacked catalog (66 KB and 64 KB both
-#: fit three an SM); it would cost one at k_pad 1000 (112 KB: two against
-#: three) and at num 100 (30 KB: seven against eight)
-FUSED = {(8, 27136, 16): True, (8, 27136, 24): True, (128, 27136, 256): True,
-         (8, 16_778_240, 16): True, (128, 27136, 1000): False,
-         (8, 27136, 104): False}
+#: (b_pad, n_items, k_pad) -> each round's (group, n_groups), one launch a
+#: round (what ``kernels.LAUNCHES["topk_merge"]`` counts): one round where
+#: the rows fill the card and the lists fit one group; two at the 8-row
+#: buckets (num 20 and num 100) and where kc is 256; three at b_pad 8,
+#: k_pad 1000 (lists of 1,000 keys, four to a 64 KB group); 257 groups a
+#: row on the unpacked catalog; one list on a one-chunk catalog
+ROUNDS = {(8, 27136, 16): [(6, 18), (18, 1)],
+          (8, 27136, 104): [(6, 18), (18, 1)],
+          (128, 27136, 16): [(106, 1)],
+          (128, 27136, 64): [(106, 1)],
+          (128, 27136, 256): [(16, 7), (7, 1)],
+          (128, 27136, 1000): [(16, 7), (7, 1)],
+          (8, 27136, 264): [(6, 18), (18, 1)],
+          (8, 27136, 1000): [(6, 18), (4, 5), (5, 1)],
+          (8, 7168, 1000): [(2, 14), (14, 1)],
+          (8, 16_778_240, 16): [(256, 257), (257, 1)],
+          (8, 256, 40): [(1, 1)]}
 
 
-@pytest.mark.parametrize("shape,fused", list(FUSED.items()),
-                         ids=[f"b{b}-n{n}-k{k}" for b, n, k in FUSED])
-def test_plan_fuses_where_no_cta_is_lost(shape, fused):
+@pytest.mark.parametrize("shape,rounds", list(ROUNDS.items()),
+                         ids=[f"b{b}-n{n}-k{k}" for b, n, k in ROUNDS])
+def test_plan_rounds(shape, rounds):
     plan = merge_plan(*shape)
-    assert len(plan) == 2 and plan[0]["fused"] is fused
-    assert plan[1]["fused"] is False
-
-
-def _variants():
-    import importlib.util
-    from pathlib import Path
-
-    path = Path(__file__).resolve().parent.parent / "scripts" / \
-        "topk_variants.py"
-    spec = importlib.util.spec_from_file_location("topk_variants", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-@pytest.mark.parametrize("name", ["rounds", "sort16"])
-def test_timing_variants_apply_to_the_source(name):
-    """``scripts/topk_variants.py`` still finds each of its anchors once
-    in ``csrc/topk.cu`` (so the A/B against the variants can be rerun)."""
-    mod = _variants()
-    src = mod.SOURCE.read_text()
-    out = mod.variant(name, src)
-    assert out != src and len(out.splitlines()) == len(src.splitlines())
+    assert [(r["group"], r["n_groups"]) for r in plan] == rounds
+    assert all(r["in_smem"] for r in plan)
 
 
 # -- on the card -----------------------------------------------------------
@@ -448,10 +411,11 @@ def cuda_device():
 @pytest.mark.cuda
 def test_kernel_matches_plain_bitwise(cuda_device):
     """The kernel at k_pad 40, 256, 264 and 1000 (topk_sort, kc 256 on
-    both sides of 256, three merge rounds at b_pad 8), both entry points,
-    query tiles of 8 and 32, n_total off a chunk edge and a one-chunk
-    catalog, against its plain version bit for bit: integer-valued factors
-    sum exactly in any order."""
+    both sides of 256, two merge rounds), both entry points, query tiles
+    of 8 and 32, n_total off a chunk edge and a one-chunk catalog, against
+    its plain version bit for bit: integer-valued factors sum exactly in
+    any order. Each call counts one topk_sort launch and one merge launch
+    a round of ``merge_plan``."""
     dev = cuda_device
     rng = np.random.default_rng(41)
     for n_total, b in ((6913, 8), (6913, 32), (200, 8)):
@@ -466,12 +430,18 @@ def test_kernel_matches_plain_bitwise(cuda_device):
         rows[1] = -1
         for k_pad in (40, 256, 264, 1000):
             k_pad = min(k_pad, n_total)
-            for out, ref in (
-                    (kernels.topk(q, items, n_total, k_pad),
-                     tret.topk_reference(q, items, n_total, k_pad)),
-                    (kernels.topk_rows(rows, qtab, items, n_total, k_pad),
-                     tret.topk_rows_reference(rows, qtab, items, n_total,
-                                              k_pad))):
+            before = dict(kernels.LAUNCHES)
+            outs = (kernels.topk(q, items, n_total, k_pad),
+                    kernels.topk_rows(rows, qtab, items, n_total, k_pad))
+            moved = {key: kernels.LAUNCHES[key] - before[key]
+                     for key in ("topk_select", "topk_sort", "topk_merge")}
+            rounds = len(merge_plan(b, items.shape[0], k_pad))
+            assert moved == {"topk_select": 0, "topk_sort": 2,
+                             "topk_merge": 2 * rounds}
+            for out, ref in zip(outs, (
+                    tret.topk_reference(q, items, n_total, k_pad),
+                    tret.topk_rows_reference(rows, qtab, items, n_total,
+                                             k_pad))):
                 v, i = tret._unpack(out, b, k_pad, k_pad)
                 assert np.array_equal(v, ref[0].cpu().numpy())
                 assert np.array_equal(i, ref[1].cpu().numpy())
