@@ -6,7 +6,8 @@ no card is visible). It imports nothing of JAX or of ``predictionio_tpu``.
 1. Device: the card's name, ``nvidia-smi``'s name and power limit, and the
    time to build the kernels (``predictionio_tpu_torch/csrc/topk.cu``,
    ``csrc/flash_attn.cu``, ``csrc/flash_attn_bwd.cu``,
-   ``csrc/flash_attn_wide.cu`` and ``csrc/flash_attn_huge.cu``, one
+   ``csrc/flash_attn_wide_fwd.cu``, ``csrc/flash_attn_wide.cu`` and
+   ``csrc/flash_attn_huge.cu``, one
    ``nvcc`` each, in parallel) from the
    checkout's sources, with the native host library
    (``predictionio_tpu_torch/native/pio_native.cpp``, g++) built beside
@@ -57,9 +58,16 @@ no card is visible). It imports nothing of JAX or of ``predictionio_tpu``.
    dims through the dispatch, each asserting from the launch count that the
    kernel ran: D10 (B2 L200 H4, padded to 16), D136 (B2 L200 H2, padded to
    256) and D256 (B2 L256 H2), f32 and bf16, causal; then the wide head
-   dims through the dispatch to ``csrc/flash_attn_wide.cu``, counted from
-   zero: D320 (B2 L200 H2, padded to 384), D512 (B2 L256 H2) and D1024 (B1
-   L256 H2), f32 and bf16, causal; then the head dims above 1,024 through
+   dims through the dispatch to the cluster forward
+   ``csrc/flash_attn_wide_fwd.cu``, counted from zero: D320 (B2 L200 H2,
+   padded to 384), D512 (B2 L256 H2) and D1024 (B1 L256 H2), causal, and
+   D640, D768 and D896 (B1 L200 H2), causal and full, so every cluster
+   size from 3 to 8 CTAs runs, f32 and bf16, each run twice and bitwise
+   equal; the launch plan the card reports for every wide head dim and
+   type (``pio_flash_attn_wide_fwd_plan``: cluster size, grid, threads,
+   shared memory) equal to ``kernels.wide_fwd_plan``'s, with the clusters
+   the card holds at once (``[attention-wide-plan]``); then the head dims
+   above 1,024 through
    the dispatch to ``csrc/flash_attn_huge.cu``, counted from zero: B1
    L1024 H2 at D 1,536 and 4,096, causal and not, f32 and bf16, then timed
    at D 4,096 causal f32 (``[attention-huge]``). Max |err| within 1e-5
@@ -525,6 +533,7 @@ BWD_REPLACES = {
 # order; bf16 P and dS roundings that an f32 difference can tip)
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0**-6}
 WIDE_SOURCE = "predictionio_tpu_torch/csrc/flash_attn_wide.cu"
+WIDE_FWD_SOURCE = "predictionio_tpu_torch/csrc/flash_attn_wide_fwd.cu"
 # the wide kernels replace no TPU kernel: the JAX package answers head dims
 # above 256 with its plain blockwise_attention, called here
 WIDE_REPLACES = "none (predictionio_tpu/parallel/ring_attention.py:212)"
@@ -1171,13 +1180,20 @@ HEAD_DIM_CASES = [
     for tag, dtype in (("f32", "float32"), ("bf16", "bfloat16"))
 ]
 #: head dims above 256 through the dispatch, which pads them to a width of
-#: the wide kernels (csrc/flash_attn_wide.cu: D 320 to 384) or gives them as
-#: they are (D 512, 1024); phases 4 and 6a
+#: the wide kernels (csrc/flash_attn_wide_fwd.cu, csrc/flash_attn_wide.cu:
+#: D 320 to 384) or gives them as they are (D 512 to 1024); the forward's
+#: cluster has D / 128 CTAs, so D 384 to 1024 run every cluster size from 3
+#: to 8; phases 4 and 6a (6a takes D 320 and 1024)
 WIDE_HEAD_DIM_CASES = [
     (f"{case} causal {tag}", B, L, H, D, dtype, True)
     for case, B, L, H, D in (("wide D320 B2 L200 H2", 2, 200, 2, 320),
                              ("wide D512 B2 L256 H2", 2, 256, 2, 512),
                              ("wide D1024 B1 L256 H2", 1, 256, 2, 1024))
+    for tag, dtype in (("f32", "float32"), ("bf16", "bfloat16"))
+] + [
+    (f"wide D{D} B1 L200 H2 {'causal' if causal else 'full'} {tag}", 1, 200,
+     2, D, dtype, causal)
+    for D in (640, 768, 896) for causal in (True, False)
     for tag, dtype in (("f32", "float32"), ("bf16", "bfloat16"))
 ]
 #: the wide kernels' timed shape (phases 4 and 6a)
@@ -1281,6 +1297,13 @@ def attention_case(dev, name, B, L, H, D, dtype, causal, *, timing):
            "kernel_launches": moved["flash_attention"],
            "wide_launches": moved["flash_attention_wide"],
            "huge_launches": moved["flash_attention_huge"]}
+    if route == "wide" and n:
+        # the cluster sums its partial scores in one fixed order: a second
+        # run gives the same bits (its launch counts as the path's too)
+        rec["repeat_bitwise"] = torch.equal(
+            out, flash_attention(q, k, v, causal=causal))
+        check(rec["repeat_bitwise"], f"{name}: the wide forward's output "
+              f"differs between two runs")
     del out, ref
     if timing:
         iters, reps = ((2, 3) if B * L * L * H >= 1 << 34 or D > 1024
@@ -1316,6 +1339,26 @@ def phase_attention(dev, cases=ATTN_CASES + HEAD_DIM_CASES
         if dev.type == "cuda":
             torch.cuda.empty_cache()
     return recs
+
+
+def wide_plans(B=2, L=2048, H=4) -> dict:
+    """The wide forward's launch at every wide head dim and type, as the
+    card reports it (``pio_flash_attn_wide_fwd_plan``), held equal to
+    ``kernels.wide_fwd_plan``'s; with the clusters the card holds at
+    once."""
+    out = {}
+    for D in range(384, kernels.WIDE_MAX_HEAD_DIM + 1, 128):
+        for dtype in (torch.float32, torch.bfloat16):
+            card = kernels.wide_fwd_plan_on_card(B, L, H, D, dtype, True)
+            plan = kernels.wide_fwd_plan(B, L, H, D, dtype)
+            check([card[key] for key in ("cluster", "grid_x", "grid_y",
+                                         "grid_z", "threads", "smem_bytes")]
+                  == [plan["cluster"], *plan["grid"], plan["threads"],
+                      plan["smem_bytes"]],
+                  f"the wide forward's plan at D {D} {dtype}: the card's "
+                  f"{card}, kernels.wide_fwd_plan's {plan}")
+            out[f"D{D} {str(dtype)[6:]}"] = card
+    return out
 
 
 # -- phase 5 ------------------------------------------------------------
@@ -4789,16 +4832,18 @@ def kernel_record(name: str, launches: int, case: dict, *,
             "replaces": replaces, "launches": launches,
             "max_abs_err": case["max_abs_err"], "ms": case["ms"],
             "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
-            "bound_by": case["bound_by"], "library_ms": case["library_ms"]}
+            "bound_by": case["bound_by"], "library_ms": case["library_ms"],
+            "share_of_bound": case["bound_ms"] / case["ms"]}
 
 
 def wide_records(fwd_launches: int, bwd_launches: dict, fwd: dict,
                  bwd: dict, *, route: str = "wide",
-                 source: str = WIDE_SOURCE) -> list:
+                 source: str = WIDE_SOURCE,
+                 fwd_source: str = WIDE_FWD_SOURCE) -> list:
     """The kernels line's records of the wide (or huge) kernels at their
     timed f32 shape."""
     recs = [kernel_record(f"flash_attention_{route}", fwd_launches, fwd,
-                          source=source, replaces=WIDE_REPLACES)]
+                          source=fwd_source, replaces=WIDE_REPLACES)]
     for entry, key, grads in ((f"flash_attention_{route}_bwd_dkv", "dkv",
                                ("dk", "dv")),
                               (f"flash_attention_{route}_bwd_dq", "dq",
@@ -5751,9 +5796,11 @@ def main() -> int:
     reset_launches()
     attn += phase_attention(dev, WIDE_HEAD_DIM_CASES, timing=False)
     wide_fwd_launches = kernels.LAUNCHES["flash_attention_wide"]
-    check(wide_fwd_launches == len(WIDE_HEAD_DIM_CASES),
+    check(wide_fwd_launches == 2 * len(WIDE_HEAD_DIM_CASES),
           f"the wide forward launched {wide_fwd_launches} times for "
-          f"{len(WIDE_HEAD_DIM_CASES)} wide head-dim cases")
+          f"{len(WIDE_HEAD_DIM_CASES)} wide head-dim cases run twice")
+    print("[attention-wide-plan] " + json.dumps(wide_plans()) + f" | {smi}",
+          flush=True)
     # the huge head dims through the dispatch, counted from zero, then
     # timed
     reset_launches()
@@ -6096,7 +6143,8 @@ def main() -> int:
         # huge cases through the dispatch, counted from zero)
         *wide_records(huge_fwd_launches, huge_bwd_launches,
                       by_attn[HUGE_TIMED_CASE], wb[HUGE_TIMED_CASE],
-                      route="huge", source=HUGE_SOURCE),
+                      route="huge", source=HUGE_SOURCE,
+                      fwd_source=HUGE_SOURCE),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -100,80 +100,10 @@ namespace {
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kMaxTiles = 65535; // grid z limit (query tiles)
 
-// 2^x by the SFU alone (ex2.approx.ftz: a result below 2^-126 is 0, which
-// is nothing beside the row's largest weight, 1); exp2f adds a range test
-// and two conditional multiplies around it
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// keys per K/V tile: 64, and 32 at head dim 256 (shared memory)
-template <int DP>
-__host__ __device__ constexpr int tile_n() {
-  return DP <= 128 ? 64 : 32;
-}
-
 // ---------------------------------------------------------------------------
 // f32: CUDA-core register tiles
 
 constexpr int kF32Threads = 256;
-
-template <int DP, int BM>
-struct F32Fwd {
-  static constexpr int TO = BM / 16;                  // rows per thread
-  static constexpr int SX = BM + 4;                   // Qt and P rows
-  static constexpr int SY = row_stride<float, DP>();  // K, V rows
-  static constexpr int NF = DP / 16;                  // features per thread
-  static constexpr int BN = tile_n<DP>();             // keys per tile
-  static constexpr int NJ = BN / 16;                  // keys per thread
-  static constexpr int kFloats = DP * SX + 4 * BN * SY + BN * SX;
-};
-
-// Stage query rows [q0, q0 + BM) transposed into qt[d * SX + r] (once per
-// CTA), zeros past L and past D; rows are the fastest index, so the shared
-// stores of a warp are consecutive.
-template <int DP, int BM>
-__device__ __forceinline__ void stage_qt(float* qt, const float* __restrict__ q,
-                                         long long base, long long rs, int q0,
-                                         int L, int D) {
-  using G = F32Fwd<DP, BM>;
-  for (int idx = threadIdx.x; idx < BM * (DP / 4); idx += kF32Threads) {
-    const int r = idx % BM, c = (idx / BM) * 4, row = q0 + r;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row < L && c < D)
-      v = __ldg(reinterpret_cast<const float4*>(q + base + row * rs + c));
-#pragma unroll
-    for (int e = 0; e < 4; ++e) qt[(c + e) * G::SX + r] = lane4(v, e);
-  }
-}
-
-template <int NF>
-__device__ __forceinline__ void load_feats(float (&x)[NF], const float* p) {
-  if constexpr (NF == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    x[0] = t.x, x[1] = t.y;
-  } else {
-#pragma unroll
-    for (int e = 0; e < NF; e += 4) {
-      const float4 t = *reinterpret_cast<const float4*>(p + e);
-      x[e] = t.x, x[e + 1] = t.y, x[e + 2] = t.z, x[e + 3] = t.w;
-    }
-  }
-}
-
-template <int NF>
-__device__ __forceinline__ void store_feats(float* p, const float (&x)[NF]) {
-  if constexpr (NF == 2) {
-    *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
-  } else {
-#pragma unroll
-    for (int e = 0; e < NF; e += 4)
-      *reinterpret_cast<float4*>(p + e) =
-          make_float4(x[e], x[e + 1], x[e + 2], x[e + 3]);
-  }
-}
 
 template <int DP, int BM, bool kCausal>
 __global__ void __launch_bounds__(kF32Threads, 1)
@@ -207,7 +137,7 @@ fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     cp_async_commit();
   };
   prefetch(0, 0);
-  stage_qt<DP, BM>(Qt, q, base, rs, q0, L, D);
+  stage_qt<DP, BM, kF32Threads>(Qt, q, base, rs, q0, L, D);
 
   // m: the running row max of S * s * log2(e); lsum: this thread's part of l
   float acc[TO][NF], m[TO], lsum[TO];

@@ -1,6 +1,7 @@
-// Exact attention for head dims above 256 on Hopper (sm_90a): the forward
-// O = softmax(Q K^T * s) V with its logsumexp, and the backward's dK/dV and
-// dQ, for every head dim from 257 to 1024.
+// Exact attention backward for head dims above 256 on Hopper (sm_90a): dK/dV
+// and dQ of O = softmax(Q K^T * s) V, for every head dim from 257 to 1024.
+// The forward that writes the logsumexp these kernels read is in
+// flash_attn_wide_fwd.cu.
 //
 // Replaces no TPU kernel. The JAX package answers these head dims with its
 // plain blockwise_attention (predictionio_tpu/parallel/ring_attention.py::
@@ -8,53 +9,47 @@
 // they never reach a Pallas kernel. The port's rule is that a wrapper
 // launches its kernel or raises on a CUDA tensor, never the plain version;
 // these kernels are what the wrappers in ops/kernels.py launch for
-// 256 < D <= 1024, where flash_attn.cu and flash_attn_bwd.cu stop. Same
-// function as the plain versions in parallel/ring_attention.py
-// (blockwise_attention, blockwise_attention_bwd) and as the narrow kernels:
-// q, k, v, do [B, L, H, D] (f32 or bf16, row-major, contiguous), the scale s
-// of the caller's original head dim, an optional causal mask (key j visible
-// to query i iff j <= i), f32 running max, sum and accumulators, outputs in
-// the input dtype. With bf16 inputs every product is exact in f32; P is
-// rounded to bf16 before P V and dV, and dS before dK and dQ, as the plain
-// version rounds them; the row sum and dS use the unrounded P.
+// 256 < D <= 1024, where flash_attn_bwd.cu stops. Same function as the
+// plain version in parallel/ring_attention.py (blockwise_attention_bwd) and
+// as the narrow kernels: q, k, v, do [B, L, H, D] (f32 or bf16, row-major,
+// contiguous), the scale s of the caller's original head dim, an optional
+// causal mask (key j visible to query i iff j <= i), f32 accumulators,
+// outputs in the input dtype. With bf16 inputs every product is exact in
+// f32; P is rounded to bf16 before dV, and dS before dK and dQ, as the
+// plain version rounds them; dS uses the unrounded P.
 //
 // D here is a multiple of 128 from 384 to 1024 (the caller zero-pads the
 // head dim up to one, which is exact, as for the narrow kernels).
 //
-// What bounds it on the card: operations. A call does 4*D FLOP per visible
-// (query, key) pair forward, 8*D for dK/dV and 6*D for dQ, against a few
-// bytes a pair; the bound is that count at the f32 peak for f32 and at the
-// bf16 tensor-core peak for bf16. These first versions are simple and do
-// not come near it: every product is a CUDA-core FFMA (no tensor cores, in
-// bf16 too), and the dot products end in warp shuffles.
+// What bounds it on the card: operations. A call does 8*D FLOP per visible
+// (query, key) pair for dK/dV and 6*D for dQ, against a few bytes a pair;
+// the bound is that count at the f32 peak for f32 and at the bf16
+// tensor-core peak for bf16. These first versions are simple and do not
+// come near it: every product is a CUDA-core FFMA (no tensor cores, in bf16
+// too), and the dot products end in warp shuffles.
 //
-// Design: one warp per output row. A warp owns one query row (forward, dQ)
-// or one key row (dK/dV); its 32 lanes stride over the features, lane l
-// holding features l, l + 32, ..., so a lane keeps D/32 floats of each row
-// vector in registers (32 at D 1024): the query row and its accumulator
-// forward; the query row, dO row and dQ for dQ; the key row, value row, dK
-// and dV for dK/dV. The 8 warps of a CTA take 8 neighbouring rows of one
-// (batch, head) and share the other side's rows, which they stage in shared
-// memory 16 at a time as f32 ([16][D] for each of two tensors: 128 KB at D
-// 1024, dynamic shared memory above 48 KB). Consecutive lanes read
-// consecutive features, so the staged rows are read without bank conflicts.
-// A dot product is D/32 FFMAs a lane and a butterfly of five xor shuffles,
-// after which every lane holds the same sum. Causal rows stop at the
-// diagonal: the forward and dQ stage keys up to the CTA's last query row,
-// dK/dV stage queries from the CTA's first key row on, and a warp skips the
-// pairs its row does not see.
+// Design: one warp per output row. A warp owns one query row (dQ) or one
+// key row (dK/dV); its 32 lanes stride over the features, lane l holding
+// features l, l + 32, ..., so a lane keeps D/32 floats of each row vector
+// in registers (32 at D 1024): the query row, dO row and dQ for dQ; the key
+// row, value row, dK and dV for dK/dV. The 8 warps of a CTA take 8
+// neighbouring rows of one (batch, head) and share the other side's rows,
+// which they stage in shared memory 16 at a time as f32 ([16][D] for each
+// of two tensors: 128 KB at D 1024, dynamic shared memory above 48 KB).
+// Consecutive lanes read consecutive features, so the staged rows are read
+// without bank conflicts. A dot product is D/32 FFMAs a lane and a
+// butterfly of five xor shuffles, after which every lane holds the same
+// sum. Causal rows stop at the diagonal: dQ stages keys up to the CTA's
+// last query row, dK/dV stages queries from the CTA's first key row on, and
+// a warp skips the pairs its row does not see.
 //
 // Determinism: no atomics; every sum runs in one fixed order (features by
 // lane, then the fixed butterfly; keys or queries in increasing position),
 // so two runs give the same bits.
 //
-// Softmax: the running max m is kept in log2 units, S * s * log2(e), with
-// s * log2(e) folded into the query row once; a tile of 16 scores updates m
-// once and rescales the sum and the accumulator by exp2 of its change. Key
-// 0 is visible to every row, so m is finite after the first tile. The
-// logsumexp is written in natural-log units, m ln(2) + log(l), as the
-// narrow kernels write it, and the backward kernels rebuild
-// P = exp2(S * s * log2(e) - lse * log2(e)) from it.
+// P is rebuilt from the forward's logsumexp (natural-log units, as every
+// forward kernel writes it) as P = exp2(S * s * log2(e) - lse * log2(e)),
+// with s * log2(e) folded into the query (dQ) or key (dK/dV) row once.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -65,7 +60,6 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kWarps = 8;             // output rows a CTA
 constexpr int kThreads = 32 * kWarps;
 constexpr int kTile = 16;             // staged rows of the other side a tile
@@ -118,9 +112,8 @@ struct Args {
   const void* dout;
   const float* lse_in;
   const float* di;
-  void* out0;  // o (forward), dk (dK/dV), dq (dQ)
+  void* out0;  // dk (dK/dV), dq (dQ)
   void* out1;  // dv (dK/dV)
-  float* lse_out;
   int B, L, H, D, causal;
   float scale;
   cudaStream_t stream;
@@ -148,80 +141,6 @@ __device__ __forceinline__ void stage(float* xs, float* ys, const T* x,
     xs[e] = xv;
     ys[e] = yv;
   }
-}
-
-// ---------------------------------------------------------------------------
-// forward: one warp per query row, K/V tiles staged in shared memory
-
-template <typename T, int NPL>
-__global__ void __launch_bounds__(kThreads)
-    wide_fwd(const Args a) {
-  constexpr int D = NPL * 32;
-  extern __shared__ float smem[];
-  float* ks = smem;
-  float* vs = smem + kTile * D;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int L = a.L, H = a.H;
-  const int row = blockIdx.x * kWarps + warp;
-  const bool active = row < L;
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  const float c = a.scale * kLog2e;
-
-  float qr[NPL], acc[NPL];
-#pragma unroll
-  for (int j = 0; j < NPL; ++j) {
-    qr[j] = active ? load(q[row_off(b, row, h, L, H, D) + j * 32 + lane]) * c
-                   : 0.f;
-    acc[j] = 0.f;
-  }
-  float m = -INFINITY, l = 0.f;
-  const int last = min(L - 1, (int)blockIdx.x * kWarps + kWarps - 1);
-  const int kend = a.causal ? last + 1 : L;
-  for (int k0 = 0; k0 < kend; k0 += kTile) {
-    __syncthreads();  // the previous tile's readers are done
-    stage<T, D>(ks, vs, k, v, b, h, k0, L, H);
-    __syncthreads();
-    if (!active) continue;
-    float s[kTile];
-    float tmax = -INFINITY;
-#pragma unroll
-    for (int r = 0; r < kTile; ++r) {
-      const int kpos = k0 + r;
-      const float d = warp_sum(dot<NPL>(qr, ks + r * D, lane));
-      const bool seen = kpos < L && (!a.causal || kpos <= row);
-      s[r] = seen ? d : -INFINITY;
-      tmax = fmaxf(tmax, s[r]);
-    }
-    if (tmax == -INFINITY) continue;  // no key of this tile is visible
-    const float m_new = fmaxf(m, tmax);
-    const float alpha = exp2f(m - m_new);  // 0 on the first visible tile
-    l *= alpha;
-#pragma unroll
-    for (int j = 0; j < NPL; ++j) acc[j] *= alpha;
-#pragma unroll
-    for (int r = 0; r < kTile; ++r) {
-      const float p = exp2f(s[r] - m_new);  // masked: exp2(-inf) = 0
-      l += p;
-      const float pr = operand<T>(p);
-      const float* vr = vs + r * D;
-#pragma unroll
-      for (int j = 0; j < NPL; ++j)
-        acc[j] = fmaf(pr, vr[j * 32 + lane], acc[j]);
-    }
-    m = m_new;
-  }
-  if (!active) return;
-  T* o = static_cast<T*>(a.out0);
-  const float inv = 1.f / l;
-  const size_t off = row_off(b, row, h, L, H, D);
-#pragma unroll
-  for (int j = 0; j < NPL; ++j)
-    o[off + j * 32 + lane] = store<T>(acc[j] * inv);
-  if (a.lse_out != nullptr && lane == 0)
-    a.lse_out[((size_t)b * H + h) * L + row] = m * kLn2 + logf(l);
 }
 
 // ---------------------------------------------------------------------------
@@ -358,7 +277,7 @@ __global__ void __launch_bounds__(kThreads)
 // ---------------------------------------------------------------------------
 // host side
 
-enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
+enum Kind { kDq = 0, kDkv = 1 };
 
 template <int NPL>
 constexpr int smem_bytes(int kind) {
@@ -368,14 +287,13 @@ constexpr int smem_bytes(int kind) {
 
 template <typename T, int NPL>
 void* kernel_of(int kind) {
-  return kind == kFwd   ? (void*)wide_fwd<T, NPL>
-         : kind == kDq ? (void*)wide_bwd_dq<T, NPL>
-                       : (void*)wide_bwd_dkv<T, NPL>;
+  return kind == kDq ? (void*)wide_bwd_dq<T, NPL>
+                     : (void*)wide_bwd_dkv<T, NPL>;
 }
 
 template <typename T, int NPL>
 cudaError_t set_smem() {
-  for (int kind = kFwd; kind <= kDkv; ++kind) {
+  for (int kind = kDq; kind <= kDkv; ++kind) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel_of<T, NPL>(kind), cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem_bytes<NPL>(kind));
@@ -388,9 +306,7 @@ template <typename T, int NPL>
 cudaError_t launch_npl(const Args& a, int kind) {
   const dim3 grid((a.L + kWarps - 1) / kWarps, a.H, a.B);
   const int bytes = smem_bytes<NPL>(kind);
-  if (kind == kFwd)
-    wide_fwd<T, NPL><<<grid, kThreads, bytes, a.stream>>>(a);
-  else if (kind == kDq)
+  if (kind == kDq)
     wide_bwd_dq<T, NPL><<<grid, kThreads, bytes, a.stream>>>(a);
   else
     wide_bwd_dkv<T, NPL><<<grid, kThreads, bytes, a.stream>>>(a);
@@ -433,38 +349,26 @@ int launch(const Args& a, int dtype, int kind) {
 extern "C" {
 
 // Raise the dynamic shared-memory ceiling of every instantiation (once).
-int pio_flash_attn_wide_init() {
+int pio_flash_attn_wide_bwd_init() {
   cudaError_t err;
   if ((err = set_smem_t<float>()) || (err = set_smem_t<bf16>()))
     return (int)err;
   return (int)cudaSuccess;
 }
 
-// q, k, v, o: [B, L, H, D] contiguous device buffers of one type (dtype 0 =
-// f32, 1 = bf16); D a multiple of 128 from 384 to 1024; L >= 1, B and H <=
-// 65535 (the wrapper checks). lse: null, or a [B, H, L] f32 device buffer
-// that receives each row's logsumexp. Launches on `stream`; returns the
-// cudaError of the launch.
-int pio_flash_attn_wide_fwd(const void* q, const void* k, const void* v,
-                            void* o, void* lse, int B, int L, int H, int D,
-                            int dtype, int causal, float scale,
-                            void* stream) {
-  const Args a{q, k, v, nullptr, nullptr, nullptr, o, nullptr,
-               static_cast<float*>(lse), B, L, H, D, causal, scale,
-               static_cast<cudaStream_t>(stream)};
-  return launch(a, dtype, kFwd);
-}
-
-// dk, dv of the forward for the output gradient do: q, k, v, do, dk, dv as
-// above; lse the forward's logsumexp and di = rowsum(do * o), [B, H, L] f32.
+// dk, dv of the forward for the output gradient do: q, k, v, do, dk, dv
+// [B, L, H, D] contiguous device buffers of one type (dtype 0 = f32, 1 =
+// bf16); D a multiple of 128 from 384 to 1024; L >= 1, B and H <= 65535
+// (the wrapper checks); lse the forward's logsumexp and di = rowsum(do * o),
+// [B, H, L] f32. Launches on `stream`; returns the cudaError of the launch.
 int pio_flash_attn_wide_bwd_dkv(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
                                 const void* di, void* dk, void* dv, int B,
                                 int L, int H, int D, int dtype, int causal,
                                 float scale, void* stream) {
   const Args a{q, k, v, dout, static_cast<const float*>(lse),
-               static_cast<const float*>(di), dk, dv, nullptr, B, L, H, D,
-               causal, scale, static_cast<cudaStream_t>(stream)};
+               static_cast<const float*>(di), dk, dv, B, L, H, D, causal, scale,
+               static_cast<cudaStream_t>(stream)};
   return launch(a, dtype, kDkv);
 }
 
@@ -475,8 +379,8 @@ int pio_flash_attn_wide_bwd_dq(const void* q, const void* k, const void* v,
                                int D, int dtype, int causal, float scale,
                                void* stream) {
   const Args a{q, k, v, dout, static_cast<const float*>(lse),
-               static_cast<const float*>(di), dq, nullptr, nullptr, B, L, H,
-               D, causal, scale, static_cast<cudaStream_t>(stream)};
+               static_cast<const float*>(di), dq, nullptr, B, L, H, D, causal,
+               scale, static_cast<cudaStream_t>(stream)};
   return launch(a, dtype, kDq);
 }
 

@@ -24,11 +24,18 @@
   ``cp.async`` ring. f32 runs SIMT register tiles on CUDA-core FFMAs (no
   TF32); bf16 runs all five products on the tensor cores (``mma.sync``
   m16n8k16 fed by ``ldmatrix``), P and dS rounded to bf16 in registers.
-- ``csrc/flash_attn_wide.cu`` replaces no TPU kernel: the same three
-  entry points launch it for head dims above 256 (multiples of 128 up to
-  1,024; the dispatch pads to one), where the JAX package runs its plain
-  ``blockwise_attention`` and the narrow kernels stop. One warp per output
-  row, CUDA-core FFMAs, no atomics.
+- ``csrc/flash_attn_wide_fwd.cu`` and ``csrc/flash_attn_wide.cu`` replace
+  no TPU kernel: the same three entry points launch them for head dims
+  above 256 (multiples of 128 up to 1,024; the dispatch pads to one), where
+  the JAX package runs its plain ``blockwise_attention`` and the narrow
+  kernels stop. The forward (``flash_attn_wide_fwd.cu``) is a thread-block
+  cluster of D/128 CTAs per 64-row query tile, one CTA a 128-feature slice
+  running the narrow kernel's head-dim-128 tile loop (f32 SIMT FFMAs, bf16
+  ``mma.sync``); the CTAs sum their partial score tiles through
+  distributed shared memory in rank order, so every CTA holds the same
+  scores and softmax (``wide_fwd_plan`` is its launch). The backward
+  (``flash_attn_wide.cu``): one warp per output row, CUDA-core FFMAs. No
+  atomics in either.
 - ``csrc/flash_attn_huge.cu`` replaces no TPU kernel either: the same
   three entry points launch it for head dims above 1,024 (multiples of
   128, with no ceiling; the dispatch pads to one). A CTA owns four rows,
@@ -63,12 +70,12 @@ import torch
 
 __all__ = ["LAUNCHES", "build", "flash_attention_bwd_dkv",
            "flash_attention_bwd_dq", "flash_attention_fwd", "source_digest",
-           "topk", "topk_rows"]
+           "topk", "topk_rows", "wide_fwd_plan", "wide_fwd_plan_on_card"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / name for name in (
-    "topk.cu", "flash_attn.cu", "flash_attn_bwd.cu", "flash_attn_wide.cu",
-    "flash_attn_huge.cu"))
+    "topk.cu", "flash_attn.cu", "flash_attn_bwd.cu", "flash_attn_wide_fwd.cu",
+    "flash_attn_wide.cu", "flash_attn_huge.cu"))
 BUILD_DIR = _PKG / "_build"
 
 #: Kernel launches per entry point (plain integers; reset by assigning 0),
@@ -131,6 +138,10 @@ def build() -> ctypes.CDLL:
         lib.pio_flash_attn_wide_fwd.argtypes = (
             lib.pio_flash_attn_fwd.argtypes)
         lib.pio_flash_attn_wide_fwd.restype = i
+        lib.pio_flash_attn_wide_fwd_plan.argtypes = [i] * 6 + [p]
+        lib.pio_flash_attn_wide_fwd_plan.restype = i
+        lib.pio_flash_attn_wide_bwd_init.argtypes = []
+        lib.pio_flash_attn_wide_bwd_init.restype = i
         lib.pio_flash_attn_wide_bwd_dkv.argtypes = (
             lib.pio_flash_attn_bwd_dkv.argtypes)
         lib.pio_flash_attn_wide_bwd_dkv.restype = i
@@ -147,7 +158,8 @@ def build() -> ctypes.CDLL:
         lib.pio_flash_attn_huge_bwd_dq.restype = i
         for init in (lib.pio_topk_init, lib.pio_flash_attn_init,
                      lib.pio_flash_attn_bwd_init,
-                     lib.pio_flash_attn_wide_init):
+                     lib.pio_flash_attn_wide_init,
+                     lib.pio_flash_attn_wide_bwd_init):
             err = init()
             if err:
                 raise RuntimeError(f"{init.__name__} failed: cudaError {err}")
@@ -285,6 +297,62 @@ _ATTN_FNS = {
 }
 
 
+#: the wide forward (csrc/flash_attn_wide_fwd.cu): features a CTA, query
+#: rows (and keys) of a tile, the clusters it takes (D 384 to 1,024), and
+#: the score-tile lines the smallest cluster's CTA sums (ceil(64 / 3))
+_WIDE_SLICE, _WIDE_TILE, _WIDE_CLUSTERS = 128, 64, range(3, 9)
+_WIDE_OWN_MAX = -(-_WIDE_TILE // _WIDE_CLUSTERS[0])
+#: the wide forward's plan fields, in pio_flash_attn_wide_fwd_plan's order
+_WIDE_PLAN_FIELDS = ("cluster", "grid_x", "grid_y", "grid_z", "threads",
+                     "smem_bytes", "max_active_clusters")
+
+
+def wide_fwd_plan(B: int, L: int, H: int, D: int,
+                  dtype: torch.dtype) -> dict:
+    """The wide forward's launch, as ``csrc/flash_attn_wide_fwd.cu`` plans
+    it (``pio_flash_attn_wide_fwd_plan`` reports the same on the card): a
+    cluster of ``D / 128`` CTAs, one a 128-feature slice, per (batch, head,
+    64-row query tile); grid ``(cluster * H, B, tiles)``, the query tile
+    the slowest axis; threads and dynamic shared memory a CTA (f32: the
+    Q slice transposed, the two-stage K/V ring, P, and the partial and
+    summed score tiles; bf16: Q, the ring, and the two score tiles); and
+    the first query row of the tile each grid z index takes, the last tile
+    (under a causal mask the heaviest) first. Raises ``ValueError`` on a
+    shape the kernel does not take."""
+    n, tiles = D // _WIDE_SLICE, -(-L // _WIDE_TILE)
+    if (D % _WIDE_SLICE or n not in _WIDE_CLUSTERS or tiles > _ATTN_MAX_TILES
+            or not (0 < B <= 65535 and 0 < H <= 65535 and L > 0)):
+        raise ValueError(f"wide forward: B {B}, L {L}, H {H}, D {D}; it "
+                         f"takes D a multiple of 128 from 384 to 1,024 and "
+                         f"at most {_ATTN_MAX_TILES} query tiles of 64")
+    T, S = _WIDE_TILE, _WIDE_SLICE
+    lines = T + _WIDE_OWN_MAX  # the partial tile and the owned sums
+    if dtype == torch.float32:
+        threads = 256
+        qt, ring, p = S * (T + 4), 4 * T * (S + 4), T * (T + 4)
+        smem = 4 * (qt + ring + p + lines * (T + 4))
+    else:
+        threads = 128
+        smem = 2 * (T + 4 * T) * (S + 8) + 4 * lines * (T + 8)
+    return {"cluster": n, "grid": (n * H, B, tiles), "threads": threads,
+            "smem_bytes": smem,
+            "tile_rows": range((tiles - 1) * T, -1, -T)}
+
+
+def wide_fwd_plan_on_card(B: int, L: int, H: int, D: int,
+                          dtype: torch.dtype, causal: bool) -> dict:
+    """``pio_flash_attn_wide_fwd_plan``: the launch the card would make, by
+    ``_WIDE_PLAN_FIELDS``, with the clusters it holds at once
+    (``cudaOccupancyMaxActiveClusters``)."""
+    lib = build()
+    out = (ctypes.c_int * len(_WIDE_PLAN_FIELDS))()
+    err = lib.pio_flash_attn_wide_fwd_plan(B, L, H, D, _ATTN_DTYPES[dtype],
+                                           int(causal), out)
+    if err:
+        raise RuntimeError(f"pio_flash_attn_wide_fwd_plan: cudaError {err}")
+    return dict(zip(_WIDE_PLAN_FIELDS, out))
+
+
 def _route(D: int) -> str:
     """The kernels a head dim that ``_attn_args`` took goes to: the narrow
     ones up to 256, the wide ones up to ``WIDE_MAX_HEAD_DIM``, the huge
@@ -341,8 +409,10 @@ def _attn_launch(name: str, kind: int, ptrs: list, shape: tuple,
     2 dK/dV) for ``shape`` on the current stream, with the f32 workspace
     the huge kernels take, and count it."""
     B, L, H, D = shape
-    lib = build()
     route = _route(D)
+    if route == "wide" and kind == 0:
+        wide_fwd_plan(B, L, H, D, dtype)  # raises on a shape it refuses
+    lib = build()
     fn = getattr(lib, _ATTN_FNS[route][(0, 2, 1)[kind]])
     extra = []
     if route == "huge":
@@ -369,7 +439,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``[B, L, H, D]`` of one type (f32 or bf16), contiguous and 16-byte
     aligned, with ``L >= 1`` and a head dim ``D`` that is a multiple of 8
     up to 128, or 256 (``csrc/flash_attn.cu``), or a multiple of 128 up to
-    1,024 (``csrc/flash_attn_wide.cu``) or above (``csrc/
+    1,024 (``csrc/flash_attn_wide_fwd.cu``) or above (``csrc/
     flash_attn_huge.cu``). Returns a new ``[B, L, H, D]`` tensor of
     ``q.dtype``. Given ``lse``, a ``[B, H, L]`` f32 CUDA buffer, the kernel
     also writes each row's logsumexp of its scaled scores there (the

@@ -1,23 +1,31 @@
-"""The attention forward kernel on one card: timed against earlier versions
-of its source, and as the compiler built it.
+"""The attention forward kernels on one card: timed against earlier
+versions of their source, and as the compiler built them.
 
     python3 scripts/attn_fwd_ab.py [--resources] [--old OLD.cu ...]
                                    [--shapes train,f32,bf16,long,serve128,
-                                             tmpl_f32,tmpl_bf16]
+                                             tmpl_f32,tmpl_bf16,wide_f32,
+                                             wide_bf16]
 
-``--old`` (repeatable) names an earlier ``flash_attn.cu``, for example
-``git show <rev>:predictionio_tpu_torch/csrc/flash_attn.cu`` written under
+``--old`` (repeatable) names an earlier forward source, for example
+``git show <rev>:predictionio_tpu_torch/csrc/flash_attn.cu`` (the narrow
+forward, head dims up to 256) or an earlier ``csrc/flash_attn_wide.cu``,
+whose forward the wide shapes (head dims 384 to 1,024) take, written under
 ``predictionio_tpu_torch/_build/``. Each is built beside the current
 kernels with its entry points renamed, and at each of ``--shapes`` (causal
-attention) all versions are timed in turns (olds, new, new, olds reversed)
-with CUDA events, next to ``scaled_dot_product_attention`` as a yardstick.
-At each shape the new output is held against the first old version's
+attention) the current kernel and every old version of its kind are timed
+in turns (olds, new, new, olds reversed) with CUDA events, next to
+``scaled_dot_product_attention`` as a yardstick. At each shape the new
+output is held against the first old version's (the plain
+``blockwise_attention``'s where no old version of its kind was given)
 within ``chip_smoke.ATTN_TOL``, and the new forward that writes the
 logsumexp must give the same output bits as the serving forward (no
-logsumexp). ``--resources`` compiles ``csrc/flash_attn.cu`` (and each
-``--old``) with ``nvcc -cubin -Xptxas -v`` for sm_90a and prints each
-kernel's registers, spill bytes and dynamic shared memory, and its ``HMMA``
-and ``FFMA`` counts from ``cuobjdump -sass``. One JSON object a line; exits
+logsumexp). ``--resources`` compiles ``csrc/flash_attn.cu`` and
+``csrc/flash_attn_wide_fwd.cu`` (and each ``--old``) with ``nvcc -cubin
+-Xptxas -v`` for sm_90a and prints each kernel's registers, spill bytes
+and dynamic shared memory, and its ``HMMA`` and ``FFMA`` counts from
+``cuobjdump -sass``; for the wide forward also its launch at every wide
+head dim and type with the clusters the card holds at once
+(``kernels.wide_fwd_plan_on_card``). One JSON object a line; exits
 non-zero without a card, and on a mismatch.
 """
 
@@ -42,23 +50,31 @@ from scripts.attn_bwd_ab import (  # noqa: E402
 
 #: (B, L, H, D, dtype), all causal: the training / serving shape (b_pad 8),
 #: the seqrec attention shape in both types, a long sequence, a full
-#: serving batch (b_pad 128) and the shipped template's (embed 48, 2 heads)
+#: serving batch (b_pad 128), the shipped template's (embed 48, 2 heads),
+#: and the wide forward's timed shape (a seqrec model at embed 2,048 and 4
+#: heads, or embed 512 and one head) in both types
 SHAPES = {"train": (8, 4096, 8, 64, "float32"),
           "f32": (4, 4096, 8, 64, "float32"),
           "bf16": (4, 4096, 8, 64, "bfloat16"),
           "long": (1, 16384, 8, 64, "bfloat16"),
           "serve128": (128, 4096, 8, 64, "float32"),
           "tmpl_f32": (8, 64, 2, 24, "float32"),
-          "tmpl_bf16": (8, 64, 2, 24, "bfloat16")}
+          "tmpl_bf16": (8, 64, 2, 24, "bfloat16"),
+          "wide_f32": (2, 2048, 4, 512, "float32"),
+          "wide_bf16": (2, 2048, 4, 512, "bfloat16")}
 
 
 def build_old(path: Path, n: int):
-    """Build an earlier source as library ``n``: its forward entry point."""
+    """Build an earlier source as library ``n``: (its kind, ``narrow`` or
+    ``wide``, and its forward entry point)."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    prefix = f"pio_old{n}_flash_attn_"
-    lib = build_renamed(path, f"pio_fwd_old{n}", "pio_flash_attn_", prefix,
+    kind = ("wide" if "pio_flash_attn_wide_fwd" in path.read_text()
+            else "narrow")
+    stem = "pio_flash_attn_" + ("wide_" if kind == "wide" else "")
+    prefix = f"pio_old{n}_" + stem[4:]
+    lib = build_renamed(path, f"pio_fwd_old{n}", stem, prefix,
                         {"fwd": [p, p, p, p, p, i, i, i, i, i, i, f, p]})
-    return getattr(lib, prefix + "fwd")
+    return kind, getattr(lib, prefix + "fwd")
 
 
 def old_call(fwd, q, k, v, causal: bool):
@@ -73,18 +89,21 @@ def old_call(fwd, q, k, v, causal: bool):
 
 
 def compare(olds: dict, name: str, card: str, B, L, H, D, dtype: str) -> bool:
-    """Time the current kernel and each earlier version in ``olds`` (tag ->
-    entry point) in turns: olds, new, new, olds reversed. Returns whether
-    the outputs held."""
+    """Time the current kernel and each earlier version of its kind in
+    ``olds`` (tag -> (kind, entry point)) in turns: olds, new, new, olds
+    reversed. Returns whether the outputs held."""
     dev, dt = torch.device("cuda"), getattr(torch, dtype)
     gen = torch.Generator(device=dev).manual_seed(cs.SEED + B * L + D)
     q, k, v = (torch.randn(B, L, H, D, generator=gen, device=dev)
                .mul_(0.5).to(dt) for _ in range(3))
     new = lambda: kernels.flash_attention_fwd(q, k, v, causal=True)  # noqa: E731
+    route = "wide" if 256 < D <= kernels.WIDE_MAX_HEAD_DIM else "narrow"
     runs = {tag: (lambda fwd=fwd: old_call(fwd, q, k, v, True))
-            for tag, fwd in olds.items()}
-    first = next(iter(olds))
-    got, want = new(), runs[first]()
+            for tag, (kind, fwd) in olds.items() if kind == route}
+    first = next(iter(runs), "plain")
+    got = new()
+    want = (runs[first]() if runs
+            else cs.chunked_blockwise(q, k, v, causal=True))
     lse = torch.empty(B, H, L, device=dev)
     bitwise = torch.equal(got, kernels.flash_attention_fwd(q, k, v,
                                                            causal=True,
@@ -97,15 +116,18 @@ def compare(olds: dict, name: str, card: str, B, L, H, D, dtype: str) -> bool:
     rec = {"shape": name, "B": B, "L": L, "H": H, "D": D, "dtype": dtype,
            "card": card, f"max_abs_err_vs_{first}": err, "tol": tol,
            "lse_forward_bitwise": bitwise, "held": held}
+    if route == "wide":
+        rec["plan"] = kernels.wide_fwd_plan_on_card(B, L, H, D, dt, True)
     iters, reps = (2, 3) if B * L * L * H >= 1 << 34 else (10, 5)
-    order = [*olds, "new", "new", *reversed(olds)]
+    order = [*runs, "new", "new", *reversed(runs)]
     times = {tag: [] for tag in order}
     for tag in order:
         times[tag].append(cs.device_ms(new if tag == "new" else runs[tag],
                                        iters, reps))
     for tag, ts in times.items():
         rec[f"{tag}_ms"] = ts
-    rec[f"speedup_vs_{first}"] = sum(times[first]) / sum(times["new"])
+    if runs:
+        rec[f"speedup_vs_{first}"] = sum(times[first]) / sum(times["new"])
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     rec["sdpa_ms"] = cs.device_ms(
         lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -121,6 +143,13 @@ def compare(olds: dict, name: str, card: str, B, L, H, D, dtype: str) -> bool:
 #: first version's flash_fwd<T, DP, causal>
 KERNEL = re.compile(r"(fwd_f32|fwd_bf16|flash_fwd)I(f|13__nv_bfloat16)?"
                     r"Li(\d+)E(?:Li(\d+)E)?Lb([01])E")
+#: the wide forward's wide_fwd_f32<causal> and wide_fwd_bf16<causal> (a
+#: 128-feature slice and 64 query rows a CTA), and the first version's
+#: wide_fwd<T, D / 32> (one warp a row, 8 rows a CTA; its backward kernels
+#: are wide_bwd_dq and wide_bwd_dkv)
+WIDE_KERNEL = re.compile(r"wide_fwd_(f32|bf16)ILb([01])E")
+OLD_WIDE_KERNEL = re.compile(r"(wide_fwd|wide_bwd_dq|wide_bwd_dkv)"
+                             r"I(f|13__nv_bfloat16)Li(\d+)E")
 
 
 def dyn_smem(kind: str, dp: int, rows: int | None) -> int | None:
@@ -138,7 +167,24 @@ def dyn_smem(kind: str, dp: int, rows: int | None) -> int | None:
 
 def resources(src: Path, tag: str) -> None:
     for fn, rec in sorted(kernel_resources(src, f"fwd_{tag}").items()):
-        m = KERNEL.search(fn)
+        m, w, o = (KERNEL.search(fn), WIDE_KERNEL.search(fn),
+                   OLD_WIDE_KERNEL.search(fn))
+        if w:
+            dtype = w.group(1)
+            plan = kernels.wide_fwd_plan(
+                1, 64, 1, 512, getattr(torch, {"f32": "float32"}.get(
+                    dtype, "bfloat16")))
+            emit({"source": tag, "kernel": f"wide_fwd_{dtype}",
+                  "dtype": dtype, "slice": 128, "rows": 64,
+                  "causal": w.group(2) == "1", **rec,
+                  "dynamic_smem_bytes": plan["smem_bytes"]})
+            continue
+        if o:
+            emit({"source": tag, "kernel": o.group(1),
+                  "dtype": "bf16" if o.group(2).endswith("bfloat16")
+                  else "f32", "head_dim": 32 * int(o.group(3)), "rows": 8,
+                  **rec})
+            continue
         if m:
             kind, dp = m.group(1), int(m.group(3))
             bm = int(m.group(4)) if m.group(4) else None
@@ -171,8 +217,14 @@ def main() -> int:
     kernels.build()
     if args.resources:
         resources(kernels.SOURCES[1], "new")
+        resources(kernels.SOURCES[3], "wide")
         for path in args.old:
             resources(path, path.stem)
+        for D in range(384, kernels.WIDE_MAX_HEAD_DIM + 1, 128):
+            for dtype in (torch.float32, torch.bfloat16):
+                emit({"source": "wide", "plan_D": D, "dtype": str(dtype),
+                      **kernels.wide_fwd_plan_on_card(*SHAPES["wide_f32"][:3],
+                                                      D, dtype, True)})
     held = True
     if args.old:
         olds = {path.stem: build_old(path, n)

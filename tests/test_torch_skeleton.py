@@ -348,6 +348,7 @@ _REPLACES = {
     # head dims above 256, which the JAX package answers with plain
     # blockwise_attention: no TPU kernel to name
     "flash_attn_wide.cu": "Replaces no TPU kernel.",
+    "flash_attn_wide_fwd.cu": "Replaces no TPU kernel.",
     # head dims above 1,024, likewise
     "flash_attn_huge.cu": "Replaces no TPU kernel.",
 }
