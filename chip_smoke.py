@@ -63,10 +63,12 @@ no card is visible). It imports nothing of JAX or of ``predictionio_tpu``.
    padded to 384), D512 (B2 L256 H2) and D1024 (B1 L256 H2), causal, and
    D640, D768 and D896 (B1 L200 H2), causal and full, so every cluster
    size from 3 to 8 CTAs runs, f32 and bf16, each run twice and bitwise
-   equal; the launch plan the card reports for every wide head dim and
-   type (``pio_flash_attn_wide_fwd_plan``: cluster size, grid, threads,
-   shared memory) equal to ``kernels.wide_fwd_plan``'s, with the clusters
-   the card holds at once (``[attention-wide-plan]``); then the head dims
+   equal; the launch plans the card reports for every wide head dim and
+   type (``pio_flash_attn_wide_fwd_plan``, and ``pio_flash_attn_wide_bwd_
+   plan`` for dK/dV and dQ: cluster size, grid, threads, shared memory)
+   equal to ``kernels.wide_fwd_plan``'s and ``kernels.wide_bwd_plan``'s,
+   with the clusters the card holds at once (``[attention-wide-plan]``);
+   then the head dims
    above 1,024 through
    the dispatch to ``csrc/flash_attn_huge.cu``, counted from zero: B1
    L1024 H2 at D 1,536 and 4,096, causal and not, f32 and bf16, then timed
@@ -110,10 +112,13 @@ no card is visible). It imports nothing of JAX or of ``predictionio_tpu``.
    and D256 fixtures through ``flash_attention`` under autograd, the launch
    counts showing that all three kernels ran once, the output bitwise equal
    to the serving forward's and held with the gradients against the plain
-   versions at the original D; the wide kernels alike: directly at D1024
-   (B1 L256 H2) and at their timed shape (B2 L2048 H4 D512), each run twice
-   and bitwise equal, and D320 and D1024 through the autograd dispatch,
-   counted from zero (``[attention-wide-bwd]``); the huge kernels at phase
+   versions at the original D; the wide kernels alike (``csrc/
+   flash_attn_wide.cu``: clusters of D/128 CTAs, a 64-row own tile each):
+   directly at D1024 (B1 L256 H2) and at their timed shape (B2 L2048 H4
+   D512), f32 and bf16, each run twice and bitwise equal, and D320 and
+   D1024 through the autograd dispatch, counted from zero
+   (``[attention-wide-bwd]``: both types' times, bounds and shares of the
+   bound); the huge kernels at phase
    4's eight huge fixtures, each run twice and bitwise equal (timed at D
    4,096 causal f32 alone), then the same fixtures through the autograd
    dispatch, counted from zero, one launch
@@ -1342,22 +1347,30 @@ def phase_attention(dev, cases=ATTN_CASES + HEAD_DIM_CASES
 
 
 def wide_plans(B=2, L=2048, H=4) -> dict:
-    """The wide forward's launch at every wide head dim and type, as the
-    card reports it (``pio_flash_attn_wide_fwd_plan``), held equal to
-    ``kernels.wide_fwd_plan``'s; with the clusters the card holds at
-    once."""
+    """The wide kernels' launches at every wide head dim and type, as the
+    card reports them (``pio_flash_attn_wide_fwd_plan``, and
+    ``pio_flash_attn_wide_bwd_plan`` for dK/dV and dQ), each held equal to
+    ``kernels.wide_fwd_plan``'s or ``kernels.wide_bwd_plan``'s; with the
+    clusters the card holds at once."""
     out = {}
     for D in range(384, kernels.WIDE_MAX_HEAD_DIM + 1, 128):
         for dtype in (torch.float32, torch.bfloat16):
-            card = kernels.wide_fwd_plan_on_card(B, L, H, D, dtype, True)
-            plan = kernels.wide_fwd_plan(B, L, H, D, dtype)
-            check([card[key] for key in ("cluster", "grid_x", "grid_y",
-                                         "grid_z", "threads", "smem_bytes")]
-                  == [plan["cluster"], *plan["grid"], plan["threads"],
-                      plan["smem_bytes"]],
-                  f"the wide forward's plan at D {D} {dtype}: the card's "
-                  f"{card}, kernels.wide_fwd_plan's {plan}")
-            out[f"D{D} {str(dtype)[6:]}"] = card
+            for kind, what in ((0, "fwd"), (2, "dkv"), (1, "dq")):
+                if kind:
+                    card = kernels.wide_bwd_plan_on_card(B, L, H, D, dtype,
+                                                         True, kind)
+                    plan = kernels.wide_bwd_plan(B, L, H, D, dtype, kind)
+                else:
+                    card = kernels.wide_fwd_plan_on_card(B, L, H, D, dtype,
+                                                         True)
+                    plan = kernels.wide_fwd_plan(B, L, H, D, dtype)
+                check([card[key] for key in (
+                    "cluster", "grid_x", "grid_y", "grid_z", "threads",
+                    "smem_bytes")] == [plan["cluster"], *plan["grid"],
+                                       plan["threads"], plan["smem_bytes"]],
+                      f"the wide {what} plan at D {D} {dtype}: the card's "
+                      f"{card}, kernels' {plan}")
+                out[f"D{D} {str(dtype)[6:]} {what}"] = card
     return out
 
 
@@ -5871,11 +5884,13 @@ def main() -> int:
     for tag, cases in (("wide", WIDE_TIMED_CASES),
                        ("huge", HUGE_TIMED_CASES)):
         print(f"[attention-{tag}-bwd] " + json.dumps({
-            r[0]: {key: wb[r[0]][key] for key in (
+            r[0]: {**{key: wb[r[0]][key] for key in (
                 "dkv_ms", "dq_ms", "dkv_bound_ms", "dq_bound_ms",
                 "plain_ms", "library_ms", "library_backend",
                 "repeat_bitwise", "dq_rel_err", "dk_rel_err",
-                "dv_rel_err")}
+                "dv_rel_err")},
+                **{f"{key}_share_of_bound": wb[r[0]][f"{key}_bound_ms"]
+                   / wb[r[0]][f"{key}_ms"] for key in ("dkv", "dq")}}
             for r in cases}) + f" | {smi}", flush=True)
     clock.lap("6a attention backward kernels")
     print(f"[attention-bwd] {len(bwd)} fixtures match "

@@ -1,16 +1,23 @@
 // Tile helpers shared by the flash-attention kernels (flash_attn.cu,
-// flash_attn_bwd.cu, flash_attn_wide_fwd.cu): 16-byte cp.async staging of
-// [B, L, H, D] rows into shared memory, zero-filled past L and past D, the
-// forward's f32 SIMT tile (its shape, the transposed Q stage, feature
-// vectors) and ex2, and the bf16 tensor-core pieces (ldmatrix, mma.sync
-// m16n8k16 with f32 sums, fragment addressing).
+// flash_attn_bwd.cu, flash_attn_wide_fwd.cu, flash_attn_wide.cu): 16-byte
+// cp.async staging of [B, L, H, D] rows into shared memory, zero-filled
+// past L and past D, the forward's f32 SIMT tile (its shape, the
+// transposed Q stage, feature vectors) and ex2, the backward's f32 SIMT
+// tile (S / dP blocks, the P / dS buffers, the gradient sums), the bf16
+// tensor-core pieces (ldmatrix, mma.sync m16n8k16 with f32 sums, fragment
+// addressing, the backward's two product shapes), and the wide kernels'
+// thread-block cluster exchange (a reduce-scatter of partial f32 tiles
+// through distributed shared memory).
 // Each including file gets its own copy (anonymous namespace).
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -62,6 +69,26 @@ __device__ __forceinline__ void stage_rows(T* s, const T* __restrict__ x,
     const int r = idx / kChunks, c = (idx % kChunks) * kE, row = r0 + r;
     const bool ok = row < L && c < D;
     cp_async16(s + r * kS + c, ok ? x + base + row * rs + c : x, ok);
+  }
+}
+
+// 4 bytes from src, or 4 zero bytes when !ok (src is then not read)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+// Stage lse or di rows [r0, r0 + ROWS) by 4-byte cp.async, zeros past L.
+template <int ROWS, int NT>
+__device__ __forceinline__ void stage_vec(float* s,
+                                          const float* __restrict__ x,
+                                          long long rbase, int r0, int L) {
+  for (int i = threadIdx.x; i < ROWS; i += NT) {
+    const bool ok = r0 + i < L;
+    cp_async4(s + i, ok ? x + rbase + r0 + i : x, ok);
   }
 }
 
@@ -221,6 +248,269 @@ __device__ __forceinline__ void write_bf16(bf16* __restrict__ out,
             __floats2bfloat162_rn(acc[f][2 * half], acc[f][2 * half + 1]);
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// the backward's tiles (flash_attn_bwd.cu; flash_attn_wide.cu at DP 128)
+
+// P = exp(s * scale - lse) as exp2(s * scale * log2(e) - lse * log2(e)):
+// scale2 = scale * log2(e), one FFMA and the SFU's exp2
+__device__ __forceinline__ float exp_lse(float s, float scale2, float lse) {
+  return exp2f(fmaf(s, scale2, -lse * kLog2e));
+}
+
+// The f32 backward's SIMT tile at DP features: BO own rows a CTA of 256
+// threads, BS streamed rows a step (64 up to head dim 128, 16 at 256,
+// unless given)
+template <int DP_, int BS_ = (DP_ <= 128 ? 64 : 16)>
+struct F32Tile {
+  static constexpr int DP = DP_;
+  static constexpr int BO = DP <= 64 ? 128 : 64;  // own rows per CTA
+  static constexpr int TO = BO / 16;              // own rows per thread
+  static constexpr int SX = BO + 4;               // transposed / buffer rows
+  static constexpr int SY = row_stride<float, DP>();  // row-major rows
+  static constexpr int NF = DP / 16;              // features per thread
+  static constexpr int BUFS = DP <= 64 ? 2 : 1;   // P and dS buffers
+  static constexpr int BS = BS_;                  // streamed rows per step
+  static constexpr int NJ = BS / 16;              // streamed rows per thread
+};
+
+// Thread roles of the f32 backward: own group og (rows og * TO + i), first
+// streamed row sr (rows sr + 8 j of BS), feature group fg (features
+// 4 fg + 64 c). Lanes 0-7 of a quarter-warp share og and take neighbouring
+// sr / fg.
+template <int BS>
+struct F32Roles {
+  int og, sr, fg;
+  __device__ F32Roles() {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    og = (warp & 3) * 4 + (lane >> 3);
+    sr = (warp >> 2) * (BS / 2) + (lane & 7);
+    fg = (warp >> 2) * 8 + (lane & 7);
+  }
+};
+
+// a[i][j] = sum_d xt[d][og * TO + i] * y[sr + 8 j][d]: the S / dP block of
+// own rows og * TO + i and streamed rows sr + 8 j, features in order.
+template <typename G>
+__device__ __forceinline__ void st_dot(float (&a)[G::TO][G::NJ],
+                                       const float* xt, const float* y,
+                                       int og, int sr) {
+#pragma unroll
+  for (int d = 0; d < G::DP; d += 4) {
+    float4 yv[G::NJ];
+#pragma unroll
+    for (int j = 0; j < G::NJ; ++j)
+      yv[j] = *reinterpret_cast<const float4*>(&y[(sr + 8 * j) * G::SY + d]);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      float xv[G::TO];
+#pragma unroll
+      for (int i = 0; i < G::TO; i += 4) {
+        const float4 t = *reinterpret_cast<const float4*>(
+            &xt[(d + c) * G::SX + og * G::TO + i]);
+        xv[i] = t.x, xv[i + 1] = t.y, xv[i + 2] = t.z, xv[i + 3] = t.w;
+      }
+#pragma unroll
+      for (int i = 0; i < G::TO; ++i)
+#pragma unroll
+        for (int j = 0; j < G::NJ; ++j)
+          a[i][j] = fmaf(xv[i], lane4(yv[j], c), a[i][j]);
+    }
+  }
+}
+
+// buf[(sr + 8 j) * SX + og * TO + i] = a[i][j]: a thread's block as 16-byte
+// rows of the [streamed][own] buffer
+template <typename G>
+__device__ __forceinline__ void put_block(float* buf,
+                                          const float (&a)[G::TO][G::NJ],
+                                          int og, int sr) {
+#pragma unroll
+  for (int j = 0; j < G::NJ; ++j)
+#pragma unroll
+    for (int i = 0; i < G::TO; i += 4)
+      *reinterpret_cast<float4*>(&buf[(sr + 8 * j) * G::SX + og * G::TO + i]) =
+          make_float4(a[i][j], a[i + 1][j], a[i + 2][j], a[i + 3][j]);
+}
+
+// acc[i][4 c + e] += sum_r buf[r][og * TO + i] * y[r][4 fg + 64 c + e] over
+// the streamed rows [R0, R1) in order: dV += P^T dO, dK += dS^T Q or
+// dQ += dS K.
+template <typename G, int R0 = 0, int R1 = G::BS>
+__device__ __forceinline__ void buf_dot(float (&acc)[G::TO][G::NF],
+                                        const float* buf, const float* y,
+                                        int og, int fg) {
+  constexpr int NC = G::DP / 64;
+#pragma unroll 8
+  for (int r = R0; r < R1; ++r) {
+    float xv[G::TO];
+#pragma unroll
+    for (int i = 0; i < G::TO; i += 4) {
+      const float4 t =
+          *reinterpret_cast<const float4*>(&buf[r * G::SX + og * G::TO + i]);
+      xv[i] = t.x, xv[i + 1] = t.y, xv[i + 2] = t.z, xv[i + 3] = t.w;
+    }
+    float4 yv[NC];
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      yv[c] =
+          *reinterpret_cast<const float4*>(&y[r * G::SY + 4 * fg + 64 * c]);
+#pragma unroll
+    for (int i = 0; i < G::TO; ++i)
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[i][4 * c + e] = fmaf(xv[i], lane4(yv[c], e), acc[i][4 * c + e]);
+  }
+}
+
+template <typename G>
+__device__ __forceinline__ void write_f32(float* __restrict__ out,
+                                          const float (&acc)[G::TO][G::NF],
+                                          long long base, long long rs,
+                                          int r0, int L, int D, int og,
+                                          int fg) {
+#pragma unroll
+  for (int i = 0; i < G::TO; ++i) {
+    const int row = r0 + og * G::TO + i;
+    if (row >= L) continue;
+#pragma unroll
+    for (int c = 0; c < G::DP / 64; ++c) {
+      const int f = 4 * fg + 64 * c;
+      if (f < D)
+        *reinterpret_cast<float4*>(&out[base + row * rs + f]) =
+            make_float4(acc[i][4 * c], acc[i][4 * c + 1], acc[i][4 * c + 2],
+                        acc[i][4 * c + 3]);
+    }
+  }
+}
+
+// acc[n] (16 x 8 tiles over the warp's rows r0..r0+15 and the streamed
+// rows 8 n..8 n+7) += x[r0.., :DP] y[8 n.., :DP]^T, x and y row-major bf16
+// tiles of DP features
+template <int DP, int NS>
+__device__ __forceinline__ void mma_rows(float (&acc)[NS][4], const bf16* x,
+                                         const bf16* y, int r0) {
+  constexpr int S = row_stride<bf16, DP>();
+#pragma unroll
+  for (int c0 = 0; c0 < DP; c0 += 16) {
+    uint32_t a[4];
+    ldsm_x4(a, a_frag(x, S, r0, c0));
+#pragma unroll
+    for (int n = 0; n < NS; n += 2) {
+      uint32_t bb[4];
+      ldsm_x4(bb, b_frag(y, S, n * 8, c0));
+      mma16816(acc[n], a, bb[0], bb[1]);
+      mma16816(acc[n + 1], a, bb[2], bb[3]);
+    }
+  }
+}
+
+// acc[f] (16 x 8 tiles over the warp's rows and features 8 f..8 f+7) +=
+// a y[16 KQ0:16 KQ1, :DP], with a the bf16 A fragments of the warp's
+// [16 x BS] P or dS (pa[n][0]: row g, streamed 8 n + 2 t and + 1; pa[n][1]:
+// row g + 8), streamed rows in order
+template <int DP, int BS, int KQ0 = 0, int KQ1 = BS / 16>
+__device__ __forceinline__ void mma_feats(float (&acc)[DP / 8][4],
+                                          const uint32_t (&pa)[BS / 8][2],
+                                          const bf16* y) {
+  constexpr int S = row_stride<bf16, DP>();
+#pragma unroll
+  for (int kq = KQ0; kq < KQ1; ++kq) {
+    const uint32_t a[4] = {pa[2 * kq][0], pa[2 * kq][1], pa[2 * kq + 1][0],
+                           pa[2 * kq + 1][1]};
+#pragma unroll
+    for (int f = 0; f < DP / 8; f += 2) {
+      uint32_t bb[4];
+      ldsm_x4_t(bb, bt_frag(y, S, kq * 16, f * 8));
+      mma16816(acc[f], a, bb[0], bb[1]);
+      mma16816(acc[f + 1], a, bb[2], bb[3]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// thread-block clusters (flash_attn_wide_fwd.cu, flash_attn_wide.cu)
+//
+// A cluster of n = D / 128 CTAs (3 to 8) splits the head dim into
+// 128-feature slices, one a CTA, so a score tile S (and dP) it forms is a
+// partial sum over its slice. Each CTA writes its partial f32 tile X
+// ([line][S] floats, W of a line summed) to its shared memory; after a
+// cluster barrier CTA r sums lines [own_start(r), own_start(r + 1)) of
+// every CTA's X, in rank order 0, 1, ..., n - 1, into its own Y; after a
+// second barrier every CTA reads each line's sum from its owner, so every
+// CTA holds the same bits.
+
+constexpr int kSlice = 128;      // features a CTA
+constexpr int kMinCluster = 3;   // D 384
+constexpr int kMaxCluster = 8;   // D 1024: the portable cluster size
+
+// the first line of a LINES-line tile that rank r of an n-CTA cluster sums
+template <int LINES>
+__device__ __forceinline__ int own_start(int r, int n) {
+  return LINES * r / n;
+}
+
+// the rank that sums line `line`: the r with own_start(r) <= line <
+// own_start(r + 1)
+template <int LINES>
+__device__ __forceinline__ int owner_of(int line, int n) {
+  return ((line + 1) * n + LINES - 1) / LINES - 1;
+}
+
+// Reduce-scatter of the cluster's partial tiles: this CTA sums lines
+// [own_start(rank), own_start(rank + 1)) of every CTA's X, in rank order,
+// into its own Y (line 0 of Y is its first line). X and Y are [line][S];
+// the first W floats of a line (a multiple of 4) are summed.
+template <int NT, int LINES, int S, int W>
+__device__ __forceinline__ void sum_own_lines(cg::cluster_group& cluster,
+                                              float* X, float* Y, int rank,
+                                              int n) {
+  const int la = own_start<LINES>(rank, n),
+            lb = own_start<LINES>(rank + 1, n);
+  for (int idx = threadIdx.x; idx < (lb - la) * (W / 4); idx += NT) {
+    const int off = (la + idx / (W / 4)) * S + (idx % (W / 4)) * 4;
+    float4 part[kMaxCluster];
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r)
+      if (r < n)
+        part[r] = *reinterpret_cast<const float4*>(
+            cluster.map_shared_rank(X, r) + off);
+    float4 acc = part[0];
+#pragma unroll
+    for (int r = 1; r < kMaxCluster; ++r)
+      if (r < n) {
+        acc.x += part[r].x;
+        acc.y += part[r].y;
+        acc.z += part[r].z;
+        acc.w += part[r].w;
+      }
+    *reinterpret_cast<float4*>(Y + off - la * S) = acc;
+  }
+}
+
+// the cluster barrier in two halves: arrive (this thread's shared-memory
+// writes released to the cluster) and wait (every thread of every CTA has
+// arrived; their writes acquired). Every thread of a warp calls each
+// together (.aligned).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the summed line `line`'s element `c` as its owner's Y holds it
+template <int LINES, int S>
+__device__ __forceinline__ const float* summed(cg::cluster_group& cluster,
+                                               float* Y, int line, int c,
+                                               int n) {
+  const int r = owner_of<LINES>(line, n);
+  return cluster.map_shared_rank(Y, r) + (line - own_start<LINES>(r, n)) * S +
+         c;
 }
 
 }  // namespace

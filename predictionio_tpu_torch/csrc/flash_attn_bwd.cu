@@ -114,43 +114,9 @@ constexpr int kTile = 64;        // own rows of a bf16 CTA
 constexpr int kMaxTiles = 65535; // grid z limit (tiles of 64)
 
 // ---------------------------------------------------------------------------
-// staging
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
-}
-
-// Stage lse or di rows [r0, r0 + ROWS) by 4-byte cp.async, zeros past L.
-template <int ROWS, int NT>
-__device__ __forceinline__ void stage_vec(float* s,
-                                          const float* __restrict__ x,
-                                          long long rbase, int r0, int L) {
-  for (int i = threadIdx.x; i < ROWS; i += NT) {
-    const bool ok = r0 + i < L;
-    cp_async4(s + i, ok ? x + rbase + r0 + i : x, ok);
-  }
-}
-
-// ---------------------------------------------------------------------------
 // f32: CUDA-core register tiles
 
 constexpr int kF32Threads = 256;
-
-template <int DP>
-struct F32Tile {
-  static constexpr int BO = DP <= 64 ? 128 : 64;  // own rows per CTA
-  static constexpr int TO = BO / 16;              // own rows per thread
-  static constexpr int SX = BO + 4;               // transposed / buffer rows
-  static constexpr int SY = row_stride<float, DP>();  // row-major rows
-  static constexpr int NF = DP / 16;              // features per thread
-  static constexpr int BUFS = DP <= 64 ? 2 : 1;   // P and dS buffers
-  static constexpr int BS = DP <= 128 ? 64 : 16;  // streamed rows per step
-  static constexpr int NJ = BS / 16;              // streamed rows per thread
-};
 
 template <int DP>
 constexpr int f32_dkv_floats() {
@@ -174,12 +140,6 @@ constexpr bool split_dkv() {
   return DP > 128;
 }
 
-// P = exp(s * scale - lse) as exp2(s * scale * log2(e) - lse * log2(e)):
-// scale2 = scale * log2(e), one FFMA and the SFU's exp2
-__device__ __forceinline__ float exp_lse(float s, float scale2, float lse) {
-  return exp2f(fmaf(s, scale2, -lse * kLog2e));
-}
-
 // Stage own rows [r0, r0 + BO) transposed into xt[d * SX + r] (once per
 // CTA), zeros past L and past D; rows are the fastest index, so the shared
 // stores of a warp are consecutive.
@@ -197,119 +157,6 @@ __device__ __forceinline__ void stage_t(float* xt, const float* __restrict__ x,
     for (int e = 0; e < 4; ++e) xt[(c + e) * G::SX + r] = lane4(v, e);
   }
 }
-
-// a[i][j] = sum_d xt[d][og * TO + i] * y[sr + 8 j][d]: the S / dP block of
-// own rows og * TO + i and streamed rows sr + 8 j, features in order.
-template <int DP>
-__device__ __forceinline__ void st_dot(
-    float (&a)[F32Tile<DP>::TO][F32Tile<DP>::NJ], const float* xt,
-    const float* y, int og, int sr) {
-  using G = F32Tile<DP>;
-#pragma unroll
-  for (int d = 0; d < DP; d += 4) {
-    float4 yv[G::NJ];
-#pragma unroll
-    for (int j = 0; j < G::NJ; ++j)
-      yv[j] = *reinterpret_cast<const float4*>(&y[(sr + 8 * j) * G::SY + d]);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      float xv[G::TO];
-#pragma unroll
-      for (int i = 0; i < G::TO; i += 4) {
-        const float4 t = *reinterpret_cast<const float4*>(
-            &xt[(d + c) * G::SX + og * G::TO + i]);
-        xv[i] = t.x, xv[i + 1] = t.y, xv[i + 2] = t.z, xv[i + 3] = t.w;
-      }
-#pragma unroll
-      for (int i = 0; i < G::TO; ++i)
-#pragma unroll
-        for (int j = 0; j < G::NJ; ++j)
-          a[i][j] = fmaf(xv[i], lane4(yv[j], c), a[i][j]);
-    }
-  }
-}
-
-// buf[(sr + 8 j) * SX + og * TO + i] = a[i][j]: a thread's block as 16-byte
-// rows of the [streamed][own] buffer
-template <int DP>
-__device__ __forceinline__ void put_block(
-    float* buf, const float (&a)[F32Tile<DP>::TO][F32Tile<DP>::NJ], int og,
-    int sr) {
-  using G = F32Tile<DP>;
-#pragma unroll
-  for (int j = 0; j < G::NJ; ++j)
-#pragma unroll
-    for (int i = 0; i < G::TO; i += 4)
-      *reinterpret_cast<float4*>(&buf[(sr + 8 * j) * G::SX + og * G::TO + i]) =
-          make_float4(a[i][j], a[i + 1][j], a[i + 2][j], a[i + 3][j]);
-}
-
-// acc[i][4 c + e] += sum_r buf[r][og * TO + i] * y[r][4 fg + 64 c + e] over
-// the BS streamed rows in order: dV += P^T dO, dK += dS^T Q or dQ += dS K.
-template <int DP>
-__device__ __forceinline__ void buf_dot(float (&acc)[F32Tile<DP>::TO][DP / 16],
-                                        const float* buf, const float* y,
-                                        int og, int fg) {
-  using G = F32Tile<DP>;
-  constexpr int NC = DP / 64;
-#pragma unroll 8
-  for (int r = 0; r < G::BS; ++r) {
-    float xv[G::TO];
-#pragma unroll
-    for (int i = 0; i < G::TO; i += 4) {
-      const float4 t =
-          *reinterpret_cast<const float4*>(&buf[r * G::SX + og * G::TO + i]);
-      xv[i] = t.x, xv[i + 1] = t.y, xv[i + 2] = t.z, xv[i + 3] = t.w;
-    }
-    float4 yv[NC];
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
-      yv[c] =
-          *reinterpret_cast<const float4*>(&y[r * G::SY + 4 * fg + 64 * c]);
-#pragma unroll
-    for (int i = 0; i < G::TO; ++i)
-#pragma unroll
-      for (int c = 0; c < NC; ++c)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          acc[i][4 * c + e] = fmaf(xv[i], lane4(yv[c], e), acc[i][4 * c + e]);
-  }
-}
-
-template <int DP>
-__device__ __forceinline__ void write_f32(
-    float* __restrict__ out, const float (&acc)[F32Tile<DP>::TO][DP / 16],
-    long long base, long long rs, int r0, int L, int D, int og, int fg) {
-  using G = F32Tile<DP>;
-#pragma unroll
-  for (int i = 0; i < G::TO; ++i) {
-    const int row = r0 + og * G::TO + i;
-    if (row >= L) continue;
-#pragma unroll
-    for (int c = 0; c < DP / 64; ++c) {
-      const int f = 4 * fg + 64 * c;
-      if (f < D)
-        *reinterpret_cast<float4*>(&out[base + row * rs + f]) =
-            make_float4(acc[i][4 * c], acc[i][4 * c + 1], acc[i][4 * c + 2],
-                        acc[i][4 * c + 3]);
-    }
-  }
-}
-
-// Thread roles of the f32 kernels: own group og (rows og * TO + i), first
-// streamed row sr (rows sr + 8 j of BS), feature group fg (features
-// 4 fg + 64 c). Lanes 0-7 of a quarter-warp share og and take neighbouring
-// sr / fg.
-template <int BS>
-struct F32Roles {
-  int og, sr, fg;
-  __device__ F32Roles() {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    og = (warp & 3) * 4 + (lane >> 3);
-    sr = (warp >> 2) * (BS / 2) + (lane & 7);
-    fg = (warp >> 2) * 8 + (lane & 7);
-  }
-};
 
 template <int DP, bool kCausal, int kOut>
 __global__ void __launch_bounds__(kF32Threads, 1)
@@ -372,8 +219,8 @@ bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < G::TO; ++i)
 #pragma unroll
       for (int j = 0; j < NJ; ++j) s[i][j] = dp[i][j] = 0.f;
-    st_dot<DP>(s, Kt, Qs, t.og, t.sr);   // S^T = K Q^T
-    if constexpr (kDK) st_dot<DP>(dp, Vt, dOs, t.og, t.sr);  // dP^T = V dO^T
+    st_dot<G>(s, Kt, Qs, t.og, t.sr);   // S^T = K Q^T
+    if constexpr (kDK) st_dot<G>(dp, Vt, dOs, t.og, t.sr);  // dP^T = V dO^T
     // every pair of the tile visible: no mask
     const bool inner = q0 + BS <= L && k0 + G::BO <= L &&
                        (!kCausal || k0 + G::BO - 1 <= q0);
@@ -393,22 +240,22 @@ bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
     // P in bufs, dS in the second buffer (in bufs when it is the only one
     // and dV is not summed here)
     float* ds_buf = bufs + (kDV ? G::BUFS - 1 : 0) * BS * G::SX;
-    if constexpr (kDV) put_block<DP>(bufs, s, t.og, t.sr);
+    if constexpr (kDV) put_block<G>(bufs, s, t.og, t.sr);
     if constexpr (kDK && (G::BUFS == 2 || !kDV))
-      put_block<DP>(ds_buf, dp, t.og, t.sr);
+      put_block<G>(ds_buf, dp, t.og, t.sr);
     __syncthreads();
-    if constexpr (kDV) buf_dot<DP>(adv, bufs, dOs, t.og, t.fg);  // dV += P^T dO
+    if constexpr (kDV) buf_dot<G>(adv, bufs, dOs, t.og, t.fg);  // dV += P^T dO
     if constexpr (kDK) {
       if constexpr (G::BUFS == 1 && kDV) {
         __syncthreads();
-        put_block<DP>(bufs, dp, t.og, t.sr);
+        put_block<G>(bufs, dp, t.og, t.sr);
         __syncthreads();
       }
-      buf_dot<DP>(adk, ds_buf, Qs, t.og, t.fg);  // dK += dS^T Q
+      buf_dot<G>(adk, ds_buf, Qs, t.og, t.fg);  // dK += dS^T Q
     }
   }
-  if constexpr (kDK) write_f32<DP>(dk, adk, base, rs, k0, L, D, t.og, t.fg);
-  if constexpr (kDV) write_f32<DP>(dv, adv, base, rs, k0, L, D, t.og, t.fg);
+  if constexpr (kDK) write_f32<G>(dk, adk, base, rs, k0, L, D, t.og, t.fg);
+  if constexpr (kDV) write_f32<G>(dv, adv, base, rs, k0, L, D, t.og, t.fg);
 }
 
 template <int DP, bool kCausal>
@@ -472,8 +319,8 @@ bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < G::TO; ++i)
 #pragma unroll
       for (int j = 0; j < NJ; ++j) s[i][j] = dp[i][j] = 0.f;
-    st_dot<DP>(s, Qt, Ks, t.og, t.sr);    // S = Q K^T
-    st_dot<DP>(dp, dOt, Vs, t.og, t.sr);  // dP = dO V^T
+    st_dot<G>(s, Qt, Ks, t.og, t.sr);    // S = Q K^T
+    st_dot<G>(dp, dOt, Vs, t.og, t.sr);  // dP = dO V^T
     const bool inner = q0 + G::BO <= L && k0 + BS <= L &&
                        (!kCausal || k0 + BS - 1 <= q0);
 #pragma unroll
@@ -488,11 +335,11 @@ bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
         dp[i][j] = (dp[i][j] - di_r[i]) * pf * scale;
       }
     }
-    put_block<DP>(buf, dp, t.og, t.sr);
+    put_block<G>(buf, dp, t.og, t.sr);
     __syncthreads();
-    buf_dot<DP>(acc, buf, Ks, t.og, t.fg);  // dQ += dS K
+    buf_dot<G>(acc, buf, Ks, t.og, t.fg);  // dQ += dS K
   }
-  write_f32<DP>(dq, acc, base, rs, q0, L, D, t.og, t.fg);
+  write_f32<G>(dq, acc, base, rs, q0, L, D, t.og, t.fg);
 }
 
 // ---------------------------------------------------------------------------
@@ -518,48 +365,6 @@ template <int DP>
 constexpr int bf16_dq_bytes() {
   using G = Bf16Tile<DP>;
   return (2 * kTile + 4 * G::BS) * G::SB * 2;  // Q, dO; ring of (K, V)
-}
-
-// acc[n] (16 x 8 tiles over the warp's rows r0..r0+15 and the streamed
-// rows 8 n..8 n+7) += x[r0.., :DP] y[8 n.., :DP]^T
-template <int DP, int NS>
-__device__ __forceinline__ void mma_rows(float (&acc)[NS][4], const bf16* x,
-                                         const bf16* y, int r0) {
-  constexpr int S = Bf16Tile<DP>::SB;
-#pragma unroll
-  for (int c0 = 0; c0 < DP; c0 += 16) {
-    uint32_t a[4];
-    ldsm_x4(a, a_frag(x, S, r0, c0));
-#pragma unroll
-    for (int n = 0; n < NS; n += 2) {
-      uint32_t bb[4];
-      ldsm_x4(bb, b_frag(y, S, n * 8, c0));
-      mma16816(acc[n], a, bb[0], bb[1]);
-      mma16816(acc[n + 1], a, bb[2], bb[3]);
-    }
-  }
-}
-
-// acc[f] (16 x 8 tiles over the warp's rows and features 8 f..8 f+7) +=
-// a y[:BS, :DP], with a the bf16 A fragments of the warp's [16 x BS] P or dS
-// (pa[n][0]: row g, streamed 8 n + 2 t and + 1; pa[n][1]: row g + 8)
-template <int DP, int BS>
-__device__ __forceinline__ void mma_feats(float (&acc)[DP / 8][4],
-                                          const uint32_t (&pa)[BS / 8][2],
-                                          const bf16* y) {
-  constexpr int S = Bf16Tile<DP>::SB;
-#pragma unroll
-  for (int kq = 0; kq < BS / 16; ++kq) {
-    const uint32_t a[4] = {pa[2 * kq][0], pa[2 * kq][1], pa[2 * kq + 1][0],
-                           pa[2 * kq + 1][1]};
-#pragma unroll
-    for (int f = 0; f < DP / 8; f += 2) {
-      uint32_t bb[4];
-      ldsm_x4_t(bb, bt_frag(y, S, kq * 16, f * 8));
-      mma16816(acc[f], a, bb[0], bb[1]);
-      mma16816(acc[f + 1], a, bb[2], bb[3]);
-    }
-  }
 }
 
 template <int DP, bool kCausal, int kOut>

@@ -72,24 +72,18 @@
 // increasing order within a slice, slices in rank order, keys in
 // increasing tiles), so two runs give the same bits.
 
-#include <cooperative_groups.h>
 #include <math.h>
 
 #include <type_traits>
 
 #include "attn_tiles.cuh"
 
-namespace cg = cooperative_groups;
-
 namespace {
 
 constexpr float kLn2 = 0.6931471805599453f;
-constexpr int kSlice = 128;       // features a CTA
 constexpr int kTile = 64;         // the score tile: query rows x keys
 constexpr int kRows = kTile;      // query rows a cluster
 constexpr int kKeys = kTile;      // keys a K/V tile
-constexpr int kMinCluster = 3;    // D 384
-constexpr int kMaxCluster = 8;    // D 1024
 constexpr int kMaxTiles = 65535;  // grid z limit (query tiles)
 // lines of the score tile the smallest cluster's CTA sums: ceil(64 / 3)
 constexpr int kOwnMax = (kTile + kMinCluster - 1) / kMinCluster;
@@ -110,65 +104,6 @@ static_assert(F32::BN == kKeys && F32::TO == 4 && F32::NJ == 4,
 // keeps each quarter (half) warp's stores on distinct banks
 constexpr int kXF32 = kTile + 4;
 constexpr int kXBf16 = kTile + 8;
-
-// the first line of the score tile that rank r of an n-CTA cluster sums
-__device__ __forceinline__ int own_start(int r, int n) { return kTile * r / n; }
-
-// the rank that sums line `line`: the r with own_start(r) <= line <
-// own_start(r + 1)
-__device__ __forceinline__ int owner_of(int line, int n) {
-  return ((line + 1) * n + kTile - 1) / kTile - 1;
-}
-
-// Reduce-scatter of the cluster's partial score tiles: this CTA sums lines
-// [own_start(rank), own_start(rank + 1)) of every CTA's X, in rank order,
-// into its own Y (line 0 of Y is its first line). X and Y are [line][S].
-template <int NT, int S>
-__device__ __forceinline__ void sum_own_lines(cg::cluster_group& cluster,
-                                              float* X, float* Y, int rank,
-                                              int n) {
-  const int la = own_start(rank, n), lb = own_start(rank + 1, n);
-  for (int idx = threadIdx.x; idx < (lb - la) * (kTile / 4); idx += NT) {
-    const int off = (la + idx / (kTile / 4)) * S + (idx % (kTile / 4)) * 4;
-    float4 part[kMaxCluster];
-#pragma unroll
-    for (int r = 0; r < kMaxCluster; ++r)
-      if (r < n)
-        part[r] = *reinterpret_cast<const float4*>(
-            cluster.map_shared_rank(X, r) + off);
-    float4 acc = part[0];
-#pragma unroll
-    for (int r = 1; r < kMaxCluster; ++r)
-      if (r < n) {
-        acc.x += part[r].x;
-        acc.y += part[r].y;
-        acc.z += part[r].z;
-        acc.w += part[r].w;
-      }
-    *reinterpret_cast<float4*>(Y + off - la * S) = acc;
-  }
-}
-
-// the cluster barrier in two halves: arrive (this thread's shared-memory
-// writes released to the cluster) and wait (every thread of every CTA has
-// arrived; their writes acquired). Every thread of a warp calls each
-// together (.aligned).
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// the summed line `line`'s element `c` as its owner's Y holds it
-template <int S>
-__device__ __forceinline__ const float* summed(cg::cluster_group& cluster,
-                                               float* Y, int line, int c,
-                                               int n) {
-  const int r = owner_of(line, n);
-  return cluster.map_shared_rank(Y, r) + (line - own_start(r, n)) * S + c;
-}
 
 // ---------------------------------------------------------------------------
 // f32: CUDA-core register tiles
@@ -288,14 +223,15 @@ wide_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     cluster_arrive();
     if (t > 0) pv(Vp, Zero(), Split());
     cluster_wait();  // every CTA's partial landed
-    sum_own_lines<kF32Threads, kXF32>(cluster, Xs, Ys, rank, n);
+    sum_own_lines<kF32Threads, kTile, kXF32, kTile>(cluster, Xs, Ys, rank,
+                                                  n);
     cluster_arrive();
     if (t > 0) pv(Vp, Split(), End());
     cluster_wait();  // every owner's sums landed
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const float4 u = *reinterpret_cast<const float4*>(
-          summed<kXF32>(cluster, Ys, kg + 16 * j, og * TO, n));
+          summed<kTile, kXF32>(cluster, Ys, kg + 16 * j, og * TO, n));
       s[0][j] = u.x, s[1][j] = u.y, s[2][j] = u.z, s[3][j] = u.w;
     }
 
@@ -492,13 +428,15 @@ wide_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cluster_arrive();
     if (tt > 0) pv(Vp, Zero(), Split());
     cluster_wait();  // every CTA's partial landed
-    sum_own_lines<kBf16Threads, kXBf16>(cluster, Xs, Ys, rank, n);
+    sum_own_lines<kBf16Threads, kTile, kXBf16, kTile>(cluster, Xs, Ys,
+                                                    rank, n);
     cluster_arrive();
     if (tt > 0) pv(Vp, Split(), End());
     cluster_wait();  // every owner's sums landed
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const float* row = summed<kXBf16>(cluster, Ys, qr + g + 8 * half, 0, n);
+      const float* row =
+          summed<kTile, kXBf16>(cluster, Ys, qr + g + 8 * half, 0, n);
 #pragma unroll
       for (int nt = 0; nt < NS; ++nt) {
         const float2 x = *reinterpret_cast<const float2*>(row + 8 * nt + 2 * t);

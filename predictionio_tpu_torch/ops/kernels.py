@@ -34,8 +34,11 @@
   ``mma.sync``); the CTAs sum their partial score tiles through
   distributed shared memory in rank order, so every CTA holds the same
   scores and softmax (``wide_fwd_plan`` is its launch). The backward
-  (``flash_attn_wide.cu``): one warp per output row, CUDA-core FFMAs. No
-  atomics in either.
+  (``flash_attn_wide.cu``) is the same split over the narrow backward's
+  head-dim-128 loop: a cluster per 64-row own tile (keys for dK/dV,
+  queries for dQ) streaming 32-row tiles, the partial S and dP of a tile
+  reduce-scattered together in rank order (``wide_bwd_plan`` is its
+  launch). No atomics in either.
 - ``csrc/flash_attn_huge.cu`` replaces no TPU kernel either: the same
   three entry points launch it for head dims above 1,024 (multiples of
   128, with no ceiling; the dispatch pads to one). A CTA owns four rows,
@@ -70,7 +73,8 @@ import torch
 
 __all__ = ["LAUNCHES", "build", "flash_attention_bwd_dkv",
            "flash_attention_bwd_dq", "flash_attention_fwd", "source_digest",
-           "topk", "topk_rows", "wide_fwd_plan", "wide_fwd_plan_on_card"]
+           "topk", "topk_rows", "wide_bwd_plan", "wide_bwd_plan_on_card",
+           "wide_fwd_plan", "wide_fwd_plan_on_card"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / name for name in (
@@ -148,6 +152,8 @@ def build() -> ctypes.CDLL:
         lib.pio_flash_attn_wide_bwd_dq.argtypes = (
             lib.pio_flash_attn_bwd_dq.argtypes)
         lib.pio_flash_attn_wide_bwd_dq.restype = i
+        lib.pio_flash_attn_wide_bwd_plan.argtypes = [i] * 7 + [p]
+        lib.pio_flash_attn_wide_bwd_plan.restype = i
         lib.pio_flash_attn_huge_workspace.argtypes = [i] * 5
         lib.pio_flash_attn_huge_workspace.restype = ll
         lib.pio_flash_attn_huge_fwd.argtypes = [p] * 6 + [i] * 6 + [f, p]
@@ -353,6 +359,73 @@ def wide_fwd_plan_on_card(B: int, L: int, H: int, D: int,
     return dict(zip(_WIDE_PLAN_FIELDS, out))
 
 
+#: the wide backward (csrc/flash_attn_wide.cu): rows of a streamed tile,
+#: and its kinds as ``_attn_launch`` numbers them (1 dQ, 2 dK/dV)
+_WIDE_STREAM = 32
+_WIDE_BWD_KINDS = (1, 2)
+
+
+def wide_bwd_plan(B: int, L: int, H: int, D: int, dtype: torch.dtype,
+                  kind: int) -> dict:
+    """The wide backward's launch, as ``csrc/flash_attn_wide.cu`` plans it
+    (``pio_flash_attn_wide_bwd_plan`` reports the same on the card) for
+    ``kind`` 1 (dQ) or 2 (dK/dV): a cluster of ``D / 128`` CTAs, one a
+    128-feature slice, per (batch, head, 64-row own tile: keys for dK/dV,
+    query rows for dQ); grid ``(cluster * H, B, tiles)``, the own tile the
+    slowest axis; threads and dynamic shared memory a CTA (f32: the own
+    slice's two tiles transposed, a three-stage ring of 32-row streamed
+    tiles, the tile before's P and dS (dS alone for dQ), the lse and di of
+    each stage for dK/dV, the partial [32 streamed][64 S + 64 dP] tile and
+    the lines the CTA sums; bf16: the own tiles and the ring row-major,
+    the lse and di stages, the partial [64 own][32 S + 32 dP] tile and the
+    lines the CTA sums); ``stream_rows``; and the first own row of the tile
+    each grid z index takes, the heaviest under a causal mask first (dK/dV
+    its first key tiles, dQ its last query tiles). Raises ``ValueError`` on
+    a shape or kind the kernels do not take."""
+    n, tiles = D // _WIDE_SLICE, -(-L // _WIDE_TILE)
+    if (kind not in _WIDE_BWD_KINDS or D % _WIDE_SLICE
+            or n not in _WIDE_CLUSTERS or tiles > _ATTN_MAX_TILES
+            or not (0 < B <= 65535 and 0 < H <= 65535 and L > 0)):
+        raise ValueError(f"wide backward: kind {kind}, B {B}, L {L}, H {H}, "
+                         f"D {D}; it takes kind 1 (dQ) or 2 (dK/dV), D a "
+                         f"multiple of 128 from 384 to 1,024 and at most "
+                         f"{_ATTN_MAX_TILES} own tiles of 64")
+    T, S, R, stages = _WIDE_TILE, _WIDE_SLICE, _WIDE_STREAM, 3
+    dkv = kind == 2
+    rows = 4 * stages * 2 * R if dkv else 0  # lse, di
+    if dtype == torch.float32:
+        threads = 256
+        sx, sy = T + 4, S + 4
+        lines = R + -(-R // _WIDE_CLUSTERS[0])  # the partial tile, the sums
+        smem = (4 * (2 * S * sx + stages * 2 * R * sy
+                     + (2 if dkv else 1) * R * sx + lines * (2 * T + 4))
+                + rows)
+    else:
+        threads = 128
+        lines = T + -(-T // _WIDE_CLUSTERS[0])
+        smem = (2 * (2 * T + stages * 2 * R) * (S + 8) + rows
+                + 4 * lines * (2 * R + 8))
+    heavy_first = (range(0, tiles * T, T) if dkv
+                   else range((tiles - 1) * T, -1, -T))
+    return {"cluster": n, "grid": (n * H, B, tiles), "threads": threads,
+            "smem_bytes": smem, "stream_rows": R, "tile_rows": heavy_first}
+
+
+def wide_bwd_plan_on_card(B: int, L: int, H: int, D: int,
+                          dtype: torch.dtype, causal: bool,
+                          kind: int) -> dict:
+    """``pio_flash_attn_wide_bwd_plan``: the backward launch of ``kind``
+    (1 dQ, 2 dK/dV) the card would make, by ``_WIDE_PLAN_FIELDS``, with
+    the clusters it holds at once (``cudaOccupancyMaxActiveClusters``)."""
+    lib = build()
+    out = (ctypes.c_int * len(_WIDE_PLAN_FIELDS))()
+    err = lib.pio_flash_attn_wide_bwd_plan(B, L, H, D, _ATTN_DTYPES[dtype],
+                                           int(causal), kind, out)
+    if err:
+        raise RuntimeError(f"pio_flash_attn_wide_bwd_plan: cudaError {err}")
+    return dict(zip(_WIDE_PLAN_FIELDS, out))
+
+
 def _route(D: int) -> str:
     """The kernels a head dim that ``_attn_args`` took goes to: the narrow
     ones up to 256, the wide ones up to ``WIDE_MAX_HEAD_DIM``, the huge
@@ -410,8 +483,11 @@ def _attn_launch(name: str, kind: int, ptrs: list, shape: tuple,
     the huge kernels take, and count it."""
     B, L, H, D = shape
     route = _route(D)
-    if route == "wide" and kind == 0:
-        wide_fwd_plan(B, L, H, D, dtype)  # raises on a shape it refuses
+    if route == "wide":  # each plan raises on a shape it refuses
+        if kind == 0:
+            wide_fwd_plan(B, L, H, D, dtype)
+        else:
+            wide_bwd_plan(B, L, H, D, dtype, kind)
     lib = build()
     fn = getattr(lib, _ATTN_FNS[route][(0, 2, 1)[kind]])
     extra = []

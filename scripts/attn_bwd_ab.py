@@ -2,20 +2,31 @@
 versions of their source, and as the compiler built them.
 
     python3 scripts/attn_bwd_ab.py [--resources] [--old OLD.cu ...]
-                                   [--shapes train,f32,bf16,long]
+                                   [--shapes train,f32,bf16,long,wide_f32,
+                                             wide_bf16]
 
-``--old`` (repeatable) names an earlier ``flash_attn_bwd.cu``, for example
-``git show <rev>:predictionio_tpu_torch/csrc/flash_attn_bwd.cu`` written
-under ``predictionio_tpu_torch/_build/``. Each is built beside the current
+``--old`` (repeatable) names an earlier backward source, for example
+``git show <rev>:predictionio_tpu_torch/csrc/flash_attn_bwd.cu`` (the
+narrow kernels, head dims up to 256) or an earlier ``csrc/
+flash_attn_wide.cu`` (its ``pio_flash_attn_wide_bwd_`` entry points; the
+wide shapes, head dims 384 to 1,024, take it), written under
+``predictionio_tpu_torch/_build/``. Each is built beside the current
 kernels with its entry points renamed, and at each of ``--shapes`` (causal
-attention, H8 D64) all versions are timed in turns (olds, new, new, olds
-reversed) with CUDA events, the new gradients held against the first old
-version's, next to the backward of ``scaled_dot_product_attention`` as a
-yardstick. ``--resources`` compiles ``csrc/flash_attn_bwd.cu`` (and each
-``--old``) with ``nvcc -cubin -Xptxas -v`` for sm_90a and prints each
-kernel's registers, spill bytes and dynamic shared memory, and its
-``HMMA`` and ``FFMA`` counts from ``cuobjdump -sass``. One JSON object a
-line; exits non-zero without a card.
+attention: H8 D64, or the wide kernels' B2 L2048 H4 D512) the current
+kernels and every old version of their kind are timed in turns (olds,
+new, new, olds reversed) with CUDA events, next to the backward of
+``scaled_dot_product_attention`` as a yardstick, with each kernel's bound
+and share of it. At each shape the new gradients are held against the
+first old version's of their kind (the plain ``blockwise_attention_bwd``'s
+where none was given) within ``chip_smoke.BWD_TOL`` of each one's largest
+magnitude. ``--resources`` compiles ``csrc/flash_attn_bwd.cu`` and
+``csrc/flash_attn_wide.cu`` (and each ``--old``) with ``nvcc -cubin
+-Xptxas -v`` for sm_90a and prints each kernel's registers, spill bytes
+and dynamic shared memory, and its ``HMMA`` and ``FFMA`` counts from
+``cuobjdump -sass``; for the wide backward also its launch at every wide
+head dim, type and kind with the clusters the card holds at once
+(``kernels.wide_bwd_plan_on_card``). One JSON object a line; exits
+non-zero without a card, and on a mismatch.
 """
 
 from __future__ import annotations
@@ -39,10 +50,15 @@ from predictionio_tpu_torch.ops import kernels  # noqa: E402
 from predictionio_tpu_torch.parallel.ring_attention import (  # noqa: E402
     attention_di)
 
+#: (B, L, H, D, dtype), all causal: the training shape, the seqrec shape in
+#: both types, a long sequence, and the wide kernels' timed shape (a seqrec
+#: model at embed 2,048 and 4 heads) in both types
 SHAPES = {"train": (8, 4096, 8, 64, "float32"),
           "f32": (4, 4096, 8, 64, "float32"),
           "bf16": (4, 4096, 8, 64, "bfloat16"),
-          "long": (1, 16384, 8, 64, "bfloat16")}
+          "long": (1, 16384, 8, 64, "bfloat16"),
+          "wide_f32": (2, 2048, 4, 512, "float32"),
+          "wide_bf16": (2, 2048, 4, 512, "bfloat16")}
 FLAGS = ["-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a"]
 
 
@@ -75,17 +91,21 @@ def build_renamed(path: Path, name: str, prefix: str, new_prefix: str,
 
 
 def build_old(path: Path, n: int):
-    """Build an earlier source as library ``n``: (lib, entry prefix)."""
+    """Build an earlier source as library ``n``: (its kind, ``narrow`` or
+    ``wide``, the library, and its entry points' prefix)."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    prefix = f"pio_old{n}_flash_attn_bwd_"
-    lib = build_renamed(path, f"pio_bwd_old{n}", "pio_flash_attn_bwd_",
-                        prefix, {"dkv": [p] * 8 + [i] * 6 + [f, p],
-                                 "dq": [p] * 7 + [i] * 6 + [f, p]})
-    return lib, prefix
+    kind = ("wide" if "pio_flash_attn_wide_bwd_dkv" in path.read_text()
+            else "narrow")
+    stem = "pio_flash_attn_" + ("wide_" if kind == "wide" else "") + "bwd_"
+    prefix = f"pio_old{n}_" + stem[4:]
+    lib = build_renamed(path, f"pio_bwd_old{n}", stem, prefix,
+                        {"dkv": [p] * 8 + [i] * 6 + [f, p],
+                         "dq": [p] * 7 + [i] * 6 + [f, p]})
+    return kind, lib, prefix
 
 
 def old_call(old, dkv: bool, q, k, v, do, lse, di, causal: bool):
-    lib, prefix = old
+    _kind, lib, prefix = old
     B, L, H, D = q.shape
     outs = [torch.empty_like(q) for _ in range(2 if dkv else 1)]
     err = getattr(lib, prefix + ("dkv" if dkv else "dq"))(
@@ -99,9 +119,10 @@ def old_call(old, dkv: bool, q, k, v, do, lse, di, causal: bool):
 
 
 def compare(olds: dict, name: str, card: str, B, L, H, D,
-            dtype: str) -> None:
-    """Time the current kernels and each earlier version in ``olds`` (tag
-    -> (lib, prefix)) in turns: olds, new, new, olds reversed."""
+            dtype: str) -> bool:
+    """Time the current kernels and each earlier version of their kind in
+    ``olds`` (tag -> (kind, lib, prefix)) in turns: olds, new, new, olds
+    reversed. Returns whether the gradients held."""
     dev, dt = torch.device("cuda"), getattr(torch, dtype)
     gen = torch.Generator(device=dev).manual_seed(cs.SEED + 7 * B * L + D)
     q, k, v, do = (torch.randn(B, L, H, D, generator=gen, device=dev)
@@ -112,30 +133,51 @@ def compare(olds: dict, name: str, card: str, B, L, H, D,
     args = (q, k, v, do, lse, di)
     new = {"dkv": lambda: kernels.flash_attention_bwd_dkv(*args, causal=True),
            "dq": lambda: kernels.flash_attention_bwd_dq(*args, causal=True)}
+    route = kernels._route(D)
     runs = {tag: {key: (lambda key=key, old=old: old_call(
         old, key == "dkv", *args, causal=True)) for key in new}
-        for tag, old in olds.items()}
-    first = next(iter(olds))
+        for tag, old in olds.items() if old[0] == route}
+    first = next(iter(runs), "plain")
     rec = {"shape": name, "B": B, "L": L, "H": H, "D": D, "dtype": dtype,
            "card": card}
+    if route == "wide":
+        rec["plans"] = {key: kernels.wide_bwd_plan_on_card(
+            B, L, H, D, dt, True, kind) for key, kind in (("dkv", 2),
+                                                         ("dq", 1))}
+    plain = None if runs else cs.chunked_bwd(q, k, v, o, lse, do,
+                                             causal=True)
     big = B * L * L * H >= 1 << 34
     iters, reps = (2, 3) if big else (10, 5)
+    held = True
     for key in new:
-        got, want = new[key](), runs[first][key]()
+        got = new[key]()
         got = got if isinstance(got, tuple) else (got,)
+        want = (runs[first][key]() if runs
+                else (plain[1], plain[2]) if key == "dkv" else (plain[0],))
         rec[f"{key}_rel_to_{first}"] = max(cs.rel_err(g, w)
                                            for g, w in zip(got, want))
-        order = [*olds, "new", "new", *reversed(olds)]
+        again = new[key]()
+        again = again if isinstance(again, tuple) else (again,)
+        rec[f"{key}_repeat_bitwise"] = all(
+            torch.equal(g, a) for g, a in zip(got, again))
+        held = (held and rec[f"{key}_repeat_bitwise"]
+                and rec[f"{key}_rel_to_{first}"] <= cs.BWD_TOL[dt])
+        del got, want, again
+        order = [*runs, "new", "new", *reversed(runs)]
         times = {tag: [] for tag in order}
         for tag in order:
             fn = new[key] if tag == "new" else runs[tag][key]
             times[tag].append(cs.device_ms(fn, iters, reps))
         for tag, ts in times.items():
             rec[f"{key}_{tag}_ms"] = ts
-        rec[f"{key}_speedup_vs_{first}"] = (sum(times[first])
-                                            / sum(times["new"]))
+        if runs:
+            rec[f"{key}_speedup_vs_{first}"] = (sum(times[first])
+                                                / sum(times["new"]))
         rec[f"{key}_bound_ms"] = cs.bwd_bound_ms(B, L, H, D, dt, True,
                                                  dkv=key == "dkv")[0]
+        rec[f"{key}_share_of_bound"] = (rec[f"{key}_bound_ms"]
+                                        / min(times["new"]))
+    del plain
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
     out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt,
@@ -143,13 +185,18 @@ def compare(olds: dict, name: str, card: str, B, L, H, D,
     rec["sdpa_bwd_ms"] = cs.device_ms(lambda: torch.autograd.grad(
         out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), iters,
         reps)
+    rec["held"] = held
     emit(rec)
+    return held
 
 
 #: kernel names: bwd_dkv_*<DP, causal, outputs> and bwd_dq_*<DP, causal>,
 #: and the first version's flash_bwd_*<T, DP, causal>
 KERNEL = re.compile(r"(bwd_(?:dkv|dq)_(?:f32|bf16)|flash_bwd_(?:dkv|dq))"
                     r"I(?:f|13__nv_bfloat16)?Li(\d+)ELb([01])E(?:Li(\d)E)?")
+#: the wide backward's wide_dkv_*<causal> and wide_dq_*<causal> (a
+#: 128-feature slice and 64 own rows a CTA)
+WIDE_KERNEL = re.compile(r"wide_(dkv|dq)_(f32|bf16)ILb([01])E")
 
 
 def dyn_smem(kind: str, dp: int) -> int | None:
@@ -218,6 +265,18 @@ def kernel_resources(src: Path, cubin_name: str) -> dict:
 
 def resources(src: Path, tag: str) -> None:
     for fn, rec in sorted(kernel_resources(src, tag).items()):
+        w = WIDE_KERNEL.search(fn)
+        if w:
+            dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[w.group(2)]
+            plan = kernels.wide_bwd_plan(1, 64, 1, 512, dtype,
+                                         2 if w.group(1) == "dkv" else 1)
+            emit({"source": tag, "kernel": f"wide_{w.group(1)}_{w.group(2)}",
+                  "slice": 128, "own_rows": 64,
+                  "stream_rows": plan["stream_rows"],
+                  "causal": w.group(3) == "1", **rec,
+                  "dynamic_smem_bytes": plan["smem_bytes"]
+                  if src == kernels.SOURCES[4] else None})
+            continue
         m = KERNEL.search(fn)
         kind, dp, causal = (m.group(1), int(m.group(2)), m.group(3) == "1") \
             if m else (fn, None, None)
@@ -246,15 +305,23 @@ def main() -> int:
     kernels.build()
     if args.resources:
         resources(kernels.SOURCES[2], "new")
+        resources(kernels.SOURCES[4], "wide")
         for path in args.old:
             resources(path, path.stem)
-    if args.old:
-        olds = {path.stem: build_old(path, n)
-                for n, path in enumerate(args.old)}
+        for D in range(384, kernels.WIDE_MAX_HEAD_DIM + 1, 128):
+            for dtype in (torch.float32, torch.bfloat16):
+                for kind in (2, 1):
+                    emit({"source": "wide", "plan_D": D,
+                          "dtype": str(dtype), "kind": kind,
+                          **kernels.wide_bwd_plan_on_card(
+                              *SHAPES["wide_f32"][:3], D, dtype, True,
+                              kind)})
+    olds = {path.stem: build_old(path, n) for n, path in enumerate(args.old)}
+    held = True
+    if args.old or not args.resources:
         for name in args.shapes.split(","):
-            compare(olds, name, smi, *SHAPES[name])
-    return 0
-
+            held = compare(olds, name, smi, *SHAPES[name]) and held
+    return 0 if held else 1
 
 if __name__ == "__main__":
     sys.exit(main())
