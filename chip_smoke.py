@@ -118,11 +118,17 @@ no card is visible). It imports nothing of JAX or of ``predictionio_tpu``.
    D512), f32 and bf16, each run twice and bitwise equal, and D320 and
    D1024 through the autograd dispatch, counted from zero
    (``[attention-wide-bwd]``: both types' times, bounds and shares of the
-   bound); the huge kernels at phase
-   4's eight huge fixtures, each run twice and bitwise equal (timed at D
-   4,096 causal f32 alone), then the same fixtures through the autograd
-   dispatch, counted from zero, one launch
-   of each kernel a fixture (``[attention-huge-bwd]``); at phase 4's timed
+   bound); the huge kernels (``csrc/flash_attn_huge.cu``: a score pass
+   of S and dP into a banded workspace, then tiled products over
+   128-feature slices) at phase 4's eight huge fixtures and at B1 L8192
+   H1 D1152 causal f32, whose dK/dV takes two workspace bands, each run
+   twice and bitwise equal (timed at D 4,096 causal f32 alone), then phase
+   4's through the autograd dispatch, counted from zero, one launch of
+   each kernel a fixture (``[attention-huge-bwd]``); the card's plan of
+   both passes (``pio_flash_attn_huge_bwd_plan``: band, workspace, grids,
+   threads, shared memory) equal to ``kernels.huge_bwd_plan``'s at both
+   shapes, types, kinds and masks, with the CTAs an SM holds at once
+   (``[attention-huge-plan]``); at phase 4's timed
    shapes, median device times of each kernel, the plain backward (in batch chunks) and, as a yardstick
    the port never calls, the backward of ``scaled_dot_product_attention``.
    (b) Full-width training steps: the phase-5 model (embed 512, 8 heads, 2
@@ -1217,6 +1223,10 @@ HUGE_HEAD_DIM_CASES = [
     for tag, dtype in (("f32", "float32"), ("bf16", "bfloat16"))]
 #: the huge kernels' record in the kernels line
 HUGE_TIMED_CASE = "huge D4096 B1 L1024 H2 causal f32"
+#: the huge backward at a length whose dK/dV workspace takes two bands
+#: (128 own key tiles of 4 MiB against the 256 MiB cap); phase 6a
+HUGE_BANDED_CASES = [("huge D1152 B1 L8192 H1 causal f32 two bands", 1,
+                      8192, 1, 1152, "float32", True)]
 SERVING_CASE = "serving B8 L4096 H8 D64 causal f32"
 #: the attention fixtures timed in phases 4 and 6a: those the kernels line
 #: and PERF.md's kernel table read (the serving and training shape, the
@@ -1371,6 +1381,38 @@ def wide_plans(B=2, L=2048, H=4) -> dict:
                       f"the wide {what} plan at D {D} {dtype}: the card's "
                       f"{card}, kernels' {plan}")
                 out[f"D{D} {str(dtype)[6:]} {what}"] = card
+    return out
+
+
+def huge_plans() -> dict:
+    """The huge backward's launches (score and product pass of the first
+    band, the band and the workspace) as the card reports them
+    (``pio_flash_attn_huge_bwd_plan``) at the timed and the banded shape,
+    both types, kinds and masks, each held equal to
+    ``kernels.huge_bwd_plan``'s; with the CTAs an SM holds at once."""
+    out = {}
+    for B, L, H, D in ((1, 1024, 2, 4096), (1, 8192, 1, 1152)):
+        for dtype in (torch.float32, torch.bfloat16):
+            for kind, what in ((2, "dkv"), (1, "dq")):
+                for causal in (True, False):
+                    card = kernels.huge_bwd_plan_on_card(B, L, H, D, dtype,
+                                                         causal, kind)
+                    plan = kernels.huge_bwd_plan(B, L, H, D, dtype, kind,
+                                                 causal)
+                    want = [plan["band_tiles"], plan["band_heads"],
+                            len(plan["bands"]), plan["workspace_bytes"]]
+                    for pass_ in ("score", "product"):
+                        want += [*plan[pass_]["grid"],
+                                 plan[pass_]["threads"],
+                                 plan[pass_]["smem_bytes"]]
+                    got = [card[key] for key in kernels._HUGE_PLAN_FIELDS
+                           if not key.endswith("blocks_per_sm")]
+                    check(got == want,
+                          f"the huge {what} plan at B{B} L{L} H{H} D{D} "
+                          f"{dtype} causal={causal}: the card's {card}, "
+                          f"kernels' {want}")
+                    out[f"B{B} L{L} H{H} D{D} {str(dtype)[6:]} {what} "
+                        f"{'causal' if causal else 'full'}"] = card
     return out
 
 
@@ -1584,7 +1626,7 @@ BWD_CASES = ATTN_CASES + [
 #: timed shape
 WIDE_BWD_CASES = [case for case in WIDE_HEAD_DIM_CASES
                   if case[4] == 1024] + WIDE_TIMED_CASES
-BWD_CASES += WIDE_BWD_CASES + HUGE_HEAD_DIM_CASES
+BWD_CASES += WIDE_BWD_CASES + HUGE_HEAD_DIM_CASES + HUGE_BANDED_CASES
 #: head dims through the autograd dispatch in phase 6a: phase 4's, and the
 #: wide D 320 (padded to 384) and D 1024
 WIDE_BWD_HEAD_DIM_CASES = [case for case in WIDE_HEAD_DIM_CASES
@@ -1594,7 +1636,8 @@ TRAIN_CASE = SERVING_CASE
 #: cases whose gradients are computed twice and held bitwise equal: the
 #: kernels use no atomics and sum in a fixed order
 REPEAT_CASES = (TRAIN_CASE, "seqrec B4 L4096 H8 D64 causal bf16",
-                *(case[0] for case in WIDE_BWD_CASES + HUGE_HEAD_DIM_CASES))
+                *(case[0] for case in WIDE_BWD_CASES + HUGE_HEAD_DIM_CASES
+                  + HUGE_BANDED_CASES))
 #: plain backward: batch rows per chunk ([chunk, H, L, 1024] f32 blocks)
 BWD_PLAIN_CHUNK = 2
 
@@ -5880,6 +5923,12 @@ def main() -> int:
            for key in ("", "_bwd_dkv", "_bwd_dq")] == [2 * n, n, n],
           f"the huge kernels did not launch once a fixture through the "
           f"autograd dispatch (the forward twice): {huge_bwd_launches}")
+    huge_plan = huge_plans()
+    check(all(huge_plan[f"B1 L8192 H1 D1152 float32 dkv {m}"]["bands"] >= 2
+              for m in ("causal", "full")),
+          "the banded fixture's dK/dV took one workspace band")
+    print("[attention-huge-plan] " + json.dumps(huge_plan) + f" | {smi}",
+          flush=True)
     wb = {r["case"]: r for r in bwd if "dkv_ms" in r}
     for tag, cases in (("wide", WIDE_TIMED_CASES),
                        ("huge", HUGE_TIMED_CASES)):

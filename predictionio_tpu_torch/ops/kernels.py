@@ -41,10 +41,15 @@
   launch). No atomics in either.
 - ``csrc/flash_attn_huge.cu`` replaces no TPU kernel either: the same
   three entry points launch it for head dims above 1,024 (multiples of
-  128, with no ceiling; the dispatch pads to one). A CTA owns four rows,
-  split across its threads by feature; each score is a block reduction
-  and the f32 accumulators live in a global-memory workspace that the
-  wrapper allocates. No atomics.
+  128, with no ceiling; the dispatch pads to one). The forward: a CTA owns
+  four query rows, split across its threads by feature, each score a
+  block reduction, the f32 accumulators in a workspace the wrapper
+  allocates. The backward: a score pass (one CTA per visible 64 x 64 tile
+  pair: S and dP over all of D, then P and dS into a workspace in the
+  input type) and a product pass (one CTA per 64-row own tile and
+  128-feature slice, the other side's tiles summed in registers), band by
+  band so the workspace stays within 256 MiB (``huge_bwd_plan`` is its
+  launch). f32 on CUDA-core FFMAs, bf16 on ``mma.sync``. No atomics.
 
 The attention entry points take CUDA tensors only; the CPU dispatch to the
 plain versions (``blockwise_attention``, ``blockwise_attention_bwd``) lives
@@ -72,9 +77,10 @@ from pathlib import Path
 import torch
 
 __all__ = ["LAUNCHES", "build", "flash_attention_bwd_dkv",
-           "flash_attention_bwd_dq", "flash_attention_fwd", "source_digest",
-           "topk", "topk_rows", "wide_bwd_plan", "wide_bwd_plan_on_card",
-           "wide_fwd_plan", "wide_fwd_plan_on_card"]
+           "flash_attention_bwd_dq", "flash_attention_fwd", "huge_bwd_plan",
+           "huge_bwd_plan_on_card", "source_digest", "topk", "topk_rows",
+           "wide_bwd_plan", "wide_bwd_plan_on_card", "wide_fwd_plan",
+           "wide_fwd_plan_on_card"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / name for name in (
@@ -154,8 +160,10 @@ def build() -> ctypes.CDLL:
         lib.pio_flash_attn_wide_bwd_dq.restype = i
         lib.pio_flash_attn_wide_bwd_plan.argtypes = [i] * 7 + [p]
         lib.pio_flash_attn_wide_bwd_plan.restype = i
-        lib.pio_flash_attn_huge_workspace.argtypes = [i] * 5
+        lib.pio_flash_attn_huge_workspace.argtypes = [i] * 6
         lib.pio_flash_attn_huge_workspace.restype = ll
+        lib.pio_flash_attn_huge_bwd_plan.argtypes = [i] * 7 + [p]
+        lib.pio_flash_attn_huge_bwd_plan.restype = i
         lib.pio_flash_attn_huge_fwd.argtypes = [p] * 6 + [i] * 6 + [f, p]
         lib.pio_flash_attn_huge_fwd.restype = i
         lib.pio_flash_attn_huge_bwd_dkv.argtypes = [p] * 9 + [i] * 6 + [f, p]
@@ -426,6 +434,104 @@ def wide_bwd_plan_on_card(B: int, L: int, H: int, D: int,
     return dict(zip(_WIDE_PLAN_FIELDS, out))
 
 
+#: the huge backward (csrc/flash_attn_huge.cu): rows of a score tile on
+#: each side, features of a product CTA's slice, and the workspace's cap
+_HUGE_TILE, _HUGE_SLICE, HUGE_WS_CAP = 64, 128, 256 << 20
+#: pio_flash_attn_huge_bwd_plan's fields, in order: the band, then each
+#: pass's launch for the first band
+_HUGE_PLAN_FIELDS = ("band_tiles", "band_heads", "bands", "workspace_bytes",
+                     *(f"{pass_}_{key}" for pass_ in ("score", "product")
+                       for key in ("grid_x", "grid_y", "grid_z", "threads",
+                                   "smem_bytes", "blocks_per_sm")))
+
+
+def _huge_seen(kind: int, causal: bool, t: int, nt: int) -> range:
+    """The other side's tiles own tile ``t`` sees: dK/dV (kind 2) owns key
+    tiles and, under a causal mask, sees the query tiles from its own on;
+    dQ (kind 1) owns query tiles and sees the key tiles up to its own."""
+    if not causal:
+        return range(nt)
+    return range(t, nt) if kind == 2 else range(t + 1)
+
+
+def huge_bwd_plan(B: int, L: int, H: int, D: int, dtype: torch.dtype,
+                  kind: int, causal: bool = True) -> dict:
+    """The huge backward's launch, as ``csrc/flash_attn_huge.cu`` plans it
+    (``pio_flash_attn_huge_bwd_plan`` reports the same on the card) for
+    ``kind`` 1 (dQ) or 2 (dK/dV). The workspace holds one band's P and dS
+    tiles (64 x 64, in the input type; P^T and dS^T for dK/dV, dS for dQ),
+    each own tile's ``nt`` other tiles, at most ``HUGE_WS_CAP`` bytes: a
+    band is the most own tiles (``band_tiles``) of every (batch, head)
+    that fit, or where one own tile of every (batch, head) does not fit,
+    one own tile of the most (batch, head)s (``band_heads``). ``bands``
+    lists them in launch order, each with its (batch, head)s (``b * H +
+    h``), its own tiles in the product pass's order, heaviest first under
+    a causal mask (dK/dV from the first key tile, dQ from the last query
+    tile), and its score grid (a CTA per visible tile pair of a (batch,
+    head), by the (batch, head)s) and product grid (``D / 128`` slices,
+    the (batch, head)s, the own tiles). ``score`` and ``product`` give
+    each pass's threads and dynamic shared memory a CTA (score: a
+    two-stage ring of the four row tiles, 32 f32 or 64 bf16 features;
+    product: a two-stage ring of each output's workspace tile and
+    128-feature slice), with the first band's grid. Raises ``ValueError``
+    on a shape or kind the kernels do not take (among them one own tile of
+    one (batch, head) above the cap: L above 524,288 for f32 dK/dV)."""
+    T, nt, bh, cap = _HUGE_TILE, -(-L // _HUGE_TILE), B * H, HUGE_WS_CAP
+    if (kind not in _WIDE_BWD_KINDS or dtype not in _ATTN_DTYPES
+            or D <= WIDE_MAX_HEAD_DIM or D % _HUGE_SLICE
+            or not (0 < B <= 65535 and 0 < H <= 65535 and L > 0)):
+        raise ValueError(f"huge backward: kind {kind}, {dtype}, B {B}, L {L}"
+                         f", H {H}, D {D}; it takes kind 1 (dQ) or 2 "
+                         f"(dK/dV), f32 or bf16, and D a multiple of 128 "
+                         f"above 1,024")
+    esize = 4 if dtype == torch.float32 else 2
+    planes = 2 if kind == 2 else 1
+    col = nt * planes * T * T * esize  # one own tile of one (batch, head)
+    if col > cap:
+        raise ValueError(f"huge backward: L {L} needs {col} bytes of "
+                         f"workspace for one own tile, above {cap}")
+    per = cap // col
+    heads, tiles = (bh, min(nt, per // bh)) if per >= bh else (per, 1)
+    bands = []
+    for h0 in range(0, bh, heads):
+        nh = min(heads, bh - h0)
+        for t0 in range(0, nt, tiles):
+            if kind == 2:
+                own = range(t0, min(nt, t0 + tiles))
+            else:
+                own = range(nt - 1 - t0, max(0, nt - t0 - tiles) - 1, -1)
+            bands.append({
+                "heads": range(h0, h0 + nh), "tiles": own,
+                "score_grid": (sum(len(_huge_seen(kind, causal, t, nt))
+                                   for t in own), nh, 1),
+                "product_grid": (D // _HUGE_SLICE, nh, len(own))})
+    ring = 2 * 4 * T * (128 + 16)  # 128 bytes of features a row, padded
+    stage = T * ((T + 16 // esize) + (_HUGE_SLICE + 16 // esize)) * esize
+    return {"band_tiles": tiles, "band_heads": heads, "bands": bands,
+            "workspace_bytes": heads * tiles * col,
+            "score": {"grid": bands[0]["score_grid"], "threads": 256,
+                      "smem_bytes": ring},
+            "product": {"grid": bands[0]["product_grid"],
+                        "threads": 128 * planes,
+                        "smem_bytes": 2 * planes * stage}}
+
+
+def huge_bwd_plan_on_card(B: int, L: int, H: int, D: int,
+                          dtype: torch.dtype, causal: bool,
+                          kind: int) -> dict:
+    """``pio_flash_attn_huge_bwd_plan``: the backward launch of ``kind``
+    (1 dQ, 2 dK/dV) the card would make, by ``_HUGE_PLAN_FIELDS``, with
+    the CTAs an SM holds at once of each pass
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    lib = build()
+    out = (ctypes.c_longlong * len(_HUGE_PLAN_FIELDS))()
+    err = lib.pio_flash_attn_huge_bwd_plan(B, L, H, D, _ATTN_DTYPES[dtype],
+                                           int(causal), kind, out)
+    if err:
+        raise RuntimeError(f"pio_flash_attn_huge_bwd_plan: cudaError {err}")
+    return dict(zip(_HUGE_PLAN_FIELDS, out))
+
+
 def _route(D: int) -> str:
     """The kernels a head dim that ``_attn_args`` took goes to: the narrow
     ones up to 256, the wide ones up to ``WIDE_MAX_HEAD_DIM``, the huge
@@ -479,33 +585,46 @@ def _attn_launch(name: str, kind: int, ptrs: list, shape: tuple,
                  dtype: torch.dtype, causal: bool, scale: float | None,
                  device: torch.device) -> None:
     """Launch the entry point ``name``'s kernel (``kind``: 0 forward, 1 dQ,
-    2 dK/dV) for ``shape`` on the current stream, with the f32 workspace
-    the huge kernels take, and count it."""
+    2 dK/dV) for ``shape`` on the current stream, with the workspace the
+    huge kernels take (the backward's as ``huge_bwd_plan`` sizes it, held
+    equal to the card's), and count it."""
     B, L, H, D = shape
-    route = _route(D)
-    if route == "wide":  # each plan raises on a shape it refuses
+    route, code = _route(D), _ATTN_DTYPES[dtype]
+    plan = None  # each plan raises on a shape it refuses
+    if route == "wide":
         if kind == 0:
             wide_fwd_plan(B, L, H, D, dtype)
         else:
             wide_bwd_plan(B, L, H, D, dtype, kind)
+    elif route == "huge" and kind:
+        plan = huge_bwd_plan(B, L, H, D, dtype, kind, causal)
     lib = build()
     fn = getattr(lib, _ATTN_FNS[route][(0, 2, 1)[kind]])
     extra = []
     if route == "huge":
-        nbytes = lib.pio_flash_attn_huge_workspace(B, L, H, D, kind)
-        if nbytes < 0:
-            raise ValueError(f"{name}: the huge kernels refuse shape "
-                             f"{shape}")
-        ws = torch.empty(nbytes // 4, dtype=torch.float32, device=device)
-        extra = [ws.data_ptr()]
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = fn(*ptrs, *extra, B, L, H, D, _ATTN_DTYPES[dtype], int(causal),
-             _scale(scale, D), stream)
+        card = lib.pio_flash_attn_huge_workspace(B, L, H, D, kind, code)
+        nbytes = card if plan is None else plan["workspace_bytes"]
+        if card < 0 or card != nbytes:
+            raise ValueError(f"{name}: the huge kernels refuse shape {shape} "
+                             f"or size its workspace otherwise ({card} "
+                             f"bytes, the plan {nbytes})")
+        extra = [_workspace(nbytes, device).data_ptr()]
+    err = fn(*ptrs, *extra, B, L, H, D, code, int(causal), _scale(scale, D),
+             _stream(device))
     if err:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
     _count(name)
     if route != "narrow":
         _count(name.replace("flash_attention", f"flash_attention_{route}"))
+
+
+def _workspace(nbytes: int, device: torch.device) -> torch.Tensor:
+    """The huge kernels' scratch: ``nbytes`` bytes on ``device``."""
+    return torch.empty(nbytes, dtype=torch.uint8, device=device)
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -3,29 +3,35 @@ versions of their source, and as the compiler built them.
 
     python3 scripts/attn_bwd_ab.py [--resources] [--old OLD.cu ...]
                                    [--shapes train,f32,bf16,long,wide_f32,
-                                             wide_bf16]
+                                             wide_bf16,huge_f32,huge_bf16]
 
 ``--old`` (repeatable) names an earlier backward source, for example
 ``git show <rev>:predictionio_tpu_torch/csrc/flash_attn_bwd.cu`` (the
 narrow kernels, head dims up to 256) or an earlier ``csrc/
 flash_attn_wide.cu`` (its ``pio_flash_attn_wide_bwd_`` entry points; the
-wide shapes, head dims 384 to 1,024, take it), written under
-``predictionio_tpu_torch/_build/``. Each is built beside the current
+wide shapes, head dims 384 to 1,024, take it) or ``csrc/
+flash_attn_huge.cu`` (its ``pio_flash_attn_huge_`` entry points, which take
+a workspace; the huge shapes, head dims above 1,024, take it), written
+under ``predictionio_tpu_torch/_build/``. Each is built beside the current
 kernels with its entry points renamed, and at each of ``--shapes`` (causal
-attention: H8 D64, or the wide kernels' B2 L2048 H4 D512) the current
-kernels and every old version of their kind are timed in turns (olds,
-new, new, olds reversed) with CUDA events, next to the backward of
-``scaled_dot_product_attention`` as a yardstick, with each kernel's bound
-and share of it. At each shape the new gradients are held against the
-first old version's of their kind (the plain ``blockwise_attention_bwd``'s
-where none was given) within ``chip_smoke.BWD_TOL`` of each one's largest
-magnitude. ``--resources`` compiles ``csrc/flash_attn_bwd.cu`` and
-``csrc/flash_attn_wide.cu`` (and each ``--old``) with ``nvcc -cubin
+attention: H8 D64, the wide kernels' B2 L2048 H4 D512, or the huge ones'
+B1 L1024 H2 D4096) the current kernels and every old version of their
+kind are timed in turns (olds, new, new, olds reversed) with CUDA events,
+next to the backward of ``scaled_dot_product_attention`` as a yardstick
+(and, at the huge shapes, the plain ``blockwise_attention_bwd``), with each
+kernel's bound and share of it. At each shape the new gradients are held
+against the first old version's of their kind (the plain
+``blockwise_attention_bwd``'s where none was given) within
+``chip_smoke.BWD_TOL`` of each one's largest magnitude. ``--resources``
+compiles ``csrc/flash_attn_bwd.cu``, ``csrc/flash_attn_wide.cu`` and
+``csrc/flash_attn_huge.cu`` (and each ``--old``) with ``nvcc -cubin
 -Xptxas -v`` for sm_90a and prints each kernel's registers, spill bytes
 and dynamic shared memory, and its ``HMMA`` and ``FFMA`` counts from
 ``cuobjdump -sass``; for the wide backward also its launch at every wide
 head dim, type and kind with the clusters the card holds at once
-(``kernels.wide_bwd_plan_on_card``). One JSON object a line; exits
+(``kernels.wide_bwd_plan_on_card``), and for the huge backward its two
+passes' launches at the huge shape with the CTAs an SM holds
+(``kernels.huge_bwd_plan_on_card``). One JSON object a line; exits
 non-zero without a card, and on a mismatch.
 """
 
@@ -51,14 +57,17 @@ from predictionio_tpu_torch.parallel.ring_attention import (  # noqa: E402
     attention_di)
 
 #: (B, L, H, D, dtype), all causal: the training shape, the seqrec shape in
-#: both types, a long sequence, and the wide kernels' timed shape (a seqrec
-#: model at embed 2,048 and 4 heads) in both types
+#: both types, a long sequence, the wide kernels' timed shape (a seqrec
+#: model at embed 2,048 and 4 heads) and the huge kernels' (chip_smoke.py's
+#: B1 L1024 H2 D4096) in both types
 SHAPES = {"train": (8, 4096, 8, 64, "float32"),
           "f32": (4, 4096, 8, 64, "float32"),
           "bf16": (4, 4096, 8, 64, "bfloat16"),
           "long": (1, 16384, 8, 64, "bfloat16"),
           "wide_f32": (2, 2048, 4, 512, "float32"),
-          "wide_bf16": (2, 2048, 4, 512, "bfloat16")}
+          "wide_bf16": (2, 2048, 4, 512, "bfloat16"),
+          "huge_f32": (1, 1024, 2, 4096, "float32"),
+          "huge_bf16": (1, 1024, 2, 4096, "bfloat16")}
 FLAGS = ["-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a"]
 
 
@@ -67,11 +76,12 @@ def emit(obj: dict) -> None:
 
 
 def build_renamed(path: Path, name: str, prefix: str, new_prefix: str,
-                  argtypes: dict, init: str = "init") -> ctypes.CDLL:
+                  argtypes: dict, init: str | None = "init") -> ctypes.CDLL:
     """Build an earlier source as library ``name`` under the build
     directory, its entry points' ``prefix`` renamed ``new_prefix``; give
     each entry in ``argtypes`` (suffix -> ctypes types) an int result and
-    call the entry point ``new_prefix + init``."""
+    call the entry point ``new_prefix + init`` (where the source has
+    one)."""
     from torch.utils.cpp_extension import load
 
     out = kernels.BUILD_DIR / name
@@ -81,37 +91,63 @@ def build_renamed(path: Path, name: str, prefix: str, new_prefix: str,
     lib = ctypes.CDLL(load(name=name, sources=[str(src)],
                            build_directory=str(out), extra_cuda_cflags=FLAGS,
                            is_python_module=False, verbose=False))
-    for suffix, types in {init: [], **argtypes}.items():
+    for suffix, types in (({init: []} if init else {}) | argtypes).items():
         getattr(lib, new_prefix + suffix).argtypes = types
         getattr(lib, new_prefix + suffix).restype = ctypes.c_int
-    err = getattr(lib, new_prefix + init)()
+    err = getattr(lib, new_prefix + init)() if init else 0
     if err:
         raise RuntimeError(f"{path} init failed: cudaError {err}")
     return lib
 
 
+#: a huge source whose workspace query takes the dtype (the banded backward)
+HUGE_WS_DTYPE = re.compile(r"pio_flash_attn_huge_workspace\(int B, int L, "
+                           r"int H, int D, int kind,\s*int dtype\)")
+
+
 def build_old(path: Path, n: int):
-    """Build an earlier source as library ``n``: (its kind, ``narrow`` or
-    ``wide``, the library, and its entry points' prefix)."""
+    """Build an earlier source as library ``n``: (its kind, ``narrow``,
+    ``wide`` or ``huge``, the library, and its entry points' prefix). A
+    huge source's entry points take a workspace pointer after the outputs;
+    its ``workspace`` entry sizes it (with the dtype as a sixth argument
+    where the source takes one)."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    kind = ("wide" if "pio_flash_attn_wide_bwd_dkv" in path.read_text()
-            else "narrow")
-    stem = "pio_flash_attn_" + ("wide_" if kind == "wide" else "") + "bwd_"
+    text = path.read_text()
+    kind = ("huge" if "pio_flash_attn_huge_bwd_dkv" in text else "wide"
+            if "pio_flash_attn_wide_bwd_dkv" in text else "narrow")
+    ws = kind == "huge"
+    stem = "pio_flash_attn_" + {"narrow": "bwd_", "wide": "wide_bwd_",
+                                "huge": "huge_"}[kind]
     prefix = f"pio_old{n}_" + stem[4:]
-    lib = build_renamed(path, f"pio_bwd_old{n}", stem, prefix,
-                        {"dkv": [p] * 8 + [i] * 6 + [f, p],
-                         "dq": [p] * 7 + [i] * 6 + [f, p]})
+    entries = {"dkv": [p] * (8 + ws) + [i] * 6 + [f, p],
+               "dq": [p] * (7 + ws) + [i] * 6 + [f, p]}
+    if ws:
+        entries = {f"bwd_{key}": types for key, types in entries.items()}
+    lib = build_renamed(path, f"pio_bwd_old{n}", stem, prefix, entries,
+                        init=None if ws else "init")
+    if ws:
+        wsfn = getattr(lib, prefix + "workspace")
+        wsfn.argtypes = [i] * (6 if HUGE_WS_DTYPE.search(text) else 5)
+        wsfn.restype = ctypes.c_longlong
     return kind, lib, prefix
 
 
 def old_call(old, dkv: bool, q, k, v, do, lse, di, causal: bool):
-    _kind, lib, prefix = old
+    kind, lib, prefix = old
     B, L, H, D = q.shape
+    code = kernels._ATTN_DTYPES[q.dtype]
     outs = [torch.empty_like(q) for _ in range(2 if dkv else 1)]
-    err = getattr(lib, prefix + ("dkv" if dkv else "dq"))(
+    extra, entry = [], ("dkv" if dkv else "dq")
+    if kind == "huge":
+        wsfn = getattr(lib, prefix + "workspace")
+        nbytes = wsfn(B, L, H, D, 2 if dkv else 1,
+                      *([code] if len(wsfn.argtypes) == 6 else []))
+        ws = torch.empty(nbytes, dtype=torch.uint8, device=q.device)
+        extra, entry = [ws.data_ptr()], "bwd_" + entry
+    err = getattr(lib, prefix + entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), di.data_ptr(), *(t.data_ptr() for t in outs), B, L,
-        H, D, kernels._ATTN_DTYPES[q.dtype], int(causal), 1.0 / D**0.5,
+        lse.data_ptr(), di.data_ptr(), *(t.data_ptr() for t in outs),
+        *extra, B, L, H, D, code, int(causal), 1.0 / D**0.5,
         torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"old kernel launch failed: cudaError {err}")
@@ -144,10 +180,17 @@ def compare(olds: dict, name: str, card: str, B, L, H, D,
         rec["plans"] = {key: kernels.wide_bwd_plan_on_card(
             B, L, H, D, dt, True, kind) for key, kind in (("dkv", 2),
                                                          ("dq", 1))}
+    if route == "huge":
+        rec["plans"] = {key: kernels.huge_bwd_plan_on_card(
+            B, L, H, D, dt, True, kind) for key, kind in (("dkv", 2),
+                                                         ("dq", 1))}
     plain = None if runs else cs.chunked_bwd(q, k, v, o, lse, do,
                                              causal=True)
     big = B * L * L * H >= 1 << 34
     iters, reps = (2, 3) if big else (10, 5)
+    if route == "huge":
+        rec["plain_ms"] = cs.device_ms(lambda: cs.chunked_bwd(
+            q, k, v, o, lse, do, causal=True), iters, reps)
     held = True
     for key in new:
         got = new[key]()
@@ -197,6 +240,10 @@ KERNEL = re.compile(r"(bwd_(?:dkv|dq)_(?:f32|bf16)|flash_bwd_(?:dkv|dq))"
 #: the wide backward's wide_dkv_*<causal> and wide_dq_*<causal> (a
 #: 128-feature slice and 64 own rows a CTA)
 WIDE_KERNEL = re.compile(r"wide_(dkv|dq)_(f32|bf16)ILb([01])E")
+#: the huge backward's huge_score<T, kind, causal> and huge_product<T,
+#: kind, causal> (kind 1 dQ, 2 dK/dV)
+HUGE_KERNEL = re.compile(r"huge_(score|product)I(f|13__nv_bfloat16)"
+                         r"Li([12])ELb([01])E")
 
 
 def dyn_smem(kind: str, dp: int) -> int | None:
@@ -265,6 +312,18 @@ def kernel_resources(src: Path, cubin_name: str) -> dict:
 
 def resources(src: Path, tag: str) -> None:
     for fn, rec in sorted(kernel_resources(src, tag).items()):
+        hg = HUGE_KERNEL.search(fn)
+        if hg:
+            dtype = torch.float32 if hg.group(2) == "f" else torch.bfloat16
+            kind = int(hg.group(3))
+            plan = kernels.huge_bwd_plan(*SHAPES["huge_f32"][:4], dtype,
+                                         kind)
+            emit({"source": tag, "kernel": f"huge_{hg.group(1)}",
+                  "dtype": str(dtype), "kind": ("dq", "dkv")[kind - 1],
+                  "causal": hg.group(4) == "1", **rec,
+                  "dynamic_smem_bytes": plan[hg.group(1)]["smem_bytes"]
+                  if src == kernels.SOURCES[5] else None})
+            continue
         w = WIDE_KERNEL.search(fn)
         if w:
             dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[w.group(2)]
@@ -306,6 +365,7 @@ def main() -> int:
     if args.resources:
         resources(kernels.SOURCES[2], "new")
         resources(kernels.SOURCES[4], "wide")
+        resources(kernels.SOURCES[5], "huge")
         for path in args.old:
             resources(path, path.stem)
         for D in range(384, kernels.WIDE_MAX_HEAD_DIM + 1, 128):
@@ -316,6 +376,11 @@ def main() -> int:
                           **kernels.wide_bwd_plan_on_card(
                               *SHAPES["wide_f32"][:3], D, dtype, True,
                               kind)})
+        for dtype in (torch.float32, torch.bfloat16):
+            for kind in (2, 1):
+                emit({"source": "huge", "dtype": str(dtype), "kind": kind,
+                      **kernels.huge_bwd_plan_on_card(
+                          *SHAPES["huge_f32"][:4], dtype, True, kind)})
     olds = {path.stem: build_old(path, n) for n, path in enumerate(args.old)}
     held = True
     if args.old or not args.resources:
