@@ -70,9 +70,13 @@ no card is visible). It imports nothing of JAX or of ``predictionio_tpu``.
    with the clusters the card holds at once (``[attention-wide-plan]``);
    then the head dims
    above 1,024 through
-   the dispatch to ``csrc/flash_attn_huge.cu``, counted from zero: B1
-   L1024 H2 at D 1,536 and 4,096, causal and not, f32 and bf16, then timed
-   at D 4,096 causal f32 (``[attention-huge]``). Max |err| within 1e-5
+   the dispatch to ``csrc/flash_attn_huge.cu`` (the forward a score, a
+   softmax and a product pass a band), counted from zero: B1 L1024 H2 at
+   D 1,536 and 4,096, causal and not, f32 and bf16, and B1 L8192 H1 D1152
+   causal bf16, whose forward takes two workspace bands, each run twice
+   and bitwise equal, and once more with the logsumexp (the same output
+   bits; the logsumexp within 1e-5 of the plain one), then timed at D
+   4,096 causal f32 and bf16 (``[attention-huge]``). Max |err| within 1e-5
    for f32 (summation order) and 2**-7 for
    bf16 (two bf16 steps at |o| ~ 1); at the shapes the kernels line and
    ``PERF.md`` read (B8 L4096 H8 D64 causal f32, B4 L4096 H8 D64 causal
@@ -122,11 +126,12 @@ no card is visible). It imports nothing of JAX or of ``predictionio_tpu``.
    of S and dP into a banded workspace, then tiled products over
    128-feature slices) at phase 4's eight huge fixtures and at B1 L8192
    H1 D1152 causal f32, whose dK/dV takes two workspace bands, each run
-   twice and bitwise equal (timed at D 4,096 causal f32 alone), then phase
-   4's through the autograd dispatch, counted from zero, one launch of
-   each kernel a fixture (``[attention-huge-bwd]``); the card's plan of
-   both passes (``pio_flash_attn_huge_bwd_plan``: band, workspace, grids,
-   threads, shared memory) equal to ``kernels.huge_bwd_plan``'s at both
+   twice and bitwise equal (timed at D 4,096 causal, f32 and bf16), then
+   phase 4's through the autograd dispatch, counted from zero, one launch
+   of each kernel a fixture (``[attention-huge-bwd]``); the card's plan of
+   every pass (``pio_flash_attn_huge_fwd_plan`` and ``pio_flash_attn_huge_
+   bwd_plan``: band, workspace, grids, threads, shared memory) equal to
+   ``kernels.huge_fwd_plan``'s and ``kernels.huge_bwd_plan``'s at both
    shapes, types, kinds and masks, with the CTAs an SM holds at once
    (``[attention-huge-plan]``); at phase 4's timed
    shapes, median device times of each kernel, the plain backward (in batch chunks) and, as a yardstick
@@ -1221,12 +1226,18 @@ HUGE_HEAD_DIM_CASES = [
      1024, 2, D, dtype, causal)
     for D in (1536, 4096) for causal in (True, False)
     for tag, dtype in (("f32", "float32"), ("bf16", "bfloat16"))]
-#: the huge kernels' record in the kernels line
+#: the huge kernels' record in the kernels line, and their timed shape in
+#: both types
 HUGE_TIMED_CASE = "huge D4096 B1 L1024 H2 causal f32"
+HUGE_TIMED_NAMES = (HUGE_TIMED_CASE, "huge D4096 B1 L1024 H2 causal bf16")
 #: the huge backward at a length whose dK/dV workspace takes two bands
 #: (128 own key tiles of 4 MiB against the 256 MiB cap); phase 6a
 HUGE_BANDED_CASES = [("huge D1152 B1 L8192 H1 causal f32 two bands", 1,
                       8192, 1, 1152, "float32", True)]
+#: the huge forward at the same length in bf16, whose workspace takes two
+#: bands (128 own query tiles of 3 MiB, f32 S and bf16 P); phase 4
+HUGE_FWD_BANDED_CASES = [("huge D1152 B1 L8192 H1 causal bf16 two bands",
+                          1, 8192, 1, 1152, "bfloat16", True)]
 SERVING_CASE = "serving B8 L4096 H8 D64 causal f32"
 #: the attention fixtures timed in phases 4 and 6a: those the kernels line
 #: and PERF.md's kernel table read (the serving and training shape, the
@@ -1235,11 +1246,11 @@ SERVING_CASE = "serving B8 L4096 H8 D64 causal f32"
 #: untimed
 TIMED_ATTN_CASES = frozenset({
     SERVING_CASE, "seqrec B4 L4096 H8 D64 causal f32",
-    "seqrec B4 L4096 H8 D64 causal bf16", HUGE_TIMED_CASE,
+    "seqrec B4 L4096 H8 D64 causal bf16", *HUGE_TIMED_NAMES,
     *(case[0] for case in WIDE_TIMED_CASES)})
 #: phase 4's timed pass over the huge head dims
 HUGE_TIMED_CASES = [case for case in HUGE_HEAD_DIM_CASES
-                    if case[0] == HUGE_TIMED_CASE]
+                    if case[0] in HUGE_TIMED_NAMES]
 #: plain attention: batch rows per chunk, so [chunk, H, L, 1024] f32 scores
 #: stay near 1 GiB at L 4096
 PLAIN_CHUNK = 8
@@ -1312,13 +1323,28 @@ def attention_case(dev, name, B, L, H, D, dtype, causal, *, timing):
            "kernel_launches": moved["flash_attention"],
            "wide_launches": moved["flash_attention_wide"],
            "huge_launches": moved["flash_attention_huge"]}
-    if route == "wide" and n:
-        # the cluster sums its partial scores in one fixed order: a second
-        # run gives the same bits (its launch counts as the path's too)
+    if route != "narrow" and n:
+        # every sum runs in one fixed order: a second run gives the same
+        # bits (its launch counts as the path's too)
         rec["repeat_bitwise"] = torch.equal(
             out, flash_attention(q, k, v, causal=causal))
-        check(rec["repeat_bitwise"], f"{name}: the wide forward's output "
+        check(rec["repeat_bitwise"], f"{name}: the {route} forward's output "
               f"differs between two runs")
+    if route == "huge" and n:
+        # the forward that writes the logsumexp (the backward's residual):
+        # the same output bits, and the logsumexp of the plain version
+        lse = torch.empty(B, H, L, device=dev)
+        rec["lse_bitwise"] = torch.equal(
+            out, kernels.flash_attention_fwd(q, k, v, causal=causal,
+                                             lse=lse))
+        check(rec["lse_bitwise"], f"{name}: the huge forward's output "
+              f"changes when it writes the logsumexp")
+        ref_lse = chunked_blockwise_lse(q, k, v, causal=causal)[1]
+        rec["lse_max_abs_err"] = float((lse - ref_lse).abs().max())
+        check(bool(torch.allclose(lse, ref_lse, rtol=LSE_TOL, atol=LSE_TOL)),
+              f"{name}: the huge forward's logsumexp disagrees with "
+              f"blockwise_attention ({rec['lse_max_abs_err']:.3g})")
+        del lse, ref_lse
     del out, ref
     if timing:
         iters, reps = ((2, 3) if B * L * L * H >= 1 << 34 or D > 1024
@@ -1385,27 +1411,39 @@ def wide_plans(B=2, L=2048, H=4) -> dict:
 
 
 def huge_plans() -> dict:
-    """The huge backward's launches (score and product pass of the first
-    band, the band and the workspace) as the card reports them
-    (``pio_flash_attn_huge_bwd_plan``) at the timed and the banded shape,
-    both types, kinds and masks, each held equal to
+    """The huge kernels' launches (each pass of the first band, the band and
+    the workspace) as the card reports them (``pio_flash_attn_huge_fwd_plan``
+    for the forward's score, softmax and product passes,
+    ``pio_flash_attn_huge_bwd_plan`` for the backward's score and product
+    passes) at the timed and the banded shape, both types, every kind and
+    both masks, each held equal to ``kernels.huge_fwd_plan``'s or
     ``kernels.huge_bwd_plan``'s; with the CTAs an SM holds at once."""
     out = {}
     for B, L, H, D in ((1, 1024, 2, 4096), (1, 8192, 1, 1152)):
         for dtype in (torch.float32, torch.bfloat16):
-            for kind, what in ((2, "dkv"), (1, "dq")):
+            for kind, what in ((0, "fwd"), (2, "dkv"), (1, "dq")):
                 for causal in (True, False):
-                    card = kernels.huge_bwd_plan_on_card(B, L, H, D, dtype,
-                                                         causal, kind)
-                    plan = kernels.huge_bwd_plan(B, L, H, D, dtype, kind,
-                                                 causal)
+                    if kind:
+                        card = kernels.huge_bwd_plan_on_card(
+                            B, L, H, D, dtype, causal, kind)
+                        plan = kernels.huge_bwd_plan(B, L, H, D, dtype,
+                                                     kind, causal)
+                        passes = ("score", "product")
+                        fields = kernels._HUGE_PLAN_FIELDS
+                    else:
+                        card = kernels.huge_fwd_plan_on_card(
+                            B, L, H, D, dtype, causal)
+                        plan = kernels.huge_fwd_plan(B, L, H, D, dtype,
+                                                     causal)
+                        passes = ("score", "softmax", "product")
+                        fields = kernels._HUGE_FWD_PLAN_FIELDS
                     want = [plan["band_tiles"], plan["band_heads"],
                             len(plan["bands"]), plan["workspace_bytes"]]
-                    for pass_ in ("score", "product"):
+                    for pass_ in passes:
                         want += [*plan[pass_]["grid"],
                                  plan[pass_]["threads"],
                                  plan[pass_]["smem_bytes"]]
-                    got = [card[key] for key in kernels._HUGE_PLAN_FIELDS
+                    got = [card[key] for key in fields
                            if not key.endswith("blocks_per_sm")]
                     check(got == want,
                           f"the huge {what} plan at B{B} L{L} H{H} D{D} "
@@ -5857,23 +5895,26 @@ def main() -> int:
           f"{len(WIDE_HEAD_DIM_CASES)} wide head-dim cases run twice")
     print("[attention-wide-plan] " + json.dumps(wide_plans()) + f" | {smi}",
           flush=True)
-    # the huge head dims through the dispatch, counted from zero, then
-    # timed
+    # the huge head dims through the dispatch, counted from zero (each
+    # case runs the forward three times: twice bitwise, once with the
+    # logsumexp), then timed
     reset_launches()
-    attn += phase_attention(dev, HUGE_HEAD_DIM_CASES, timing=False)
+    huge_fwd_cases = HUGE_HEAD_DIM_CASES + HUGE_FWD_BANDED_CASES
+    attn += phase_attention(dev, huge_fwd_cases, timing=False)
     huge_fwd_launches = kernels.LAUNCHES["flash_attention_huge"]
-    check(huge_fwd_launches == len(HUGE_HEAD_DIM_CASES),
+    check(huge_fwd_launches == 3 * len(huge_fwd_cases),
           f"the huge forward launched {huge_fwd_launches} times for "
-          f"{len(HUGE_HEAD_DIM_CASES)} huge head-dim cases")
+          f"{len(huge_fwd_cases)} huge head-dim cases run three times")
     attn += phase_attention(dev, HUGE_TIMED_CASES)
     wt = {r["case"]: r for r in attn}
     for tag, cases in (("wide", WIDE_TIMED_CASES),
                        ("huge", HUGE_TIMED_CASES)):
         print(f"[attention-{tag}] " + json.dumps({
-            r[0]: {key: wt[r[0]][key] for key in (
+            r[0]: {**{key: wt[r[0]][key] for key in (
                 "ms", "bound_ms", "bound_by", "plain_ms", "library_ms",
-                "library_backend", "max_abs_err")} for r in cases})
-            + f" | {smi}", flush=True)
+                "library_backend", "max_abs_err")},
+                "share_of_bound": wt[r[0]]["bound_ms"] / wt[r[0]]["ms"]}
+            for r in cases}) + f" | {smi}", flush=True)
     clock.lap("4 attention kernel")
     print(f"[attention] {len(attn)} fixtures match blockwise_attention "
           f"(max |err| f32 "
@@ -5927,6 +5968,9 @@ def main() -> int:
     check(all(huge_plan[f"B1 L8192 H1 D1152 float32 dkv {m}"]["bands"] >= 2
               for m in ("causal", "full")),
           "the banded fixture's dK/dV took one workspace band")
+    check(huge_plan["B1 L8192 H1 D1152 bfloat16 fwd causal"]["bands"] == 2,
+          "the banded bf16 forward fixture did not take two workspace "
+          "bands")
     print("[attention-huge-plan] " + json.dumps(huge_plan) + f" | {smi}",
           flush=True)
     wb = {r["case"]: r for r in bwd if "dkv_ms" in r}

@@ -13,12 +13,12 @@
 // parallel/ring_attention.py (blockwise_attention, blockwise_attention_bwd)
 // and as the wide kernels: q, k, v, do [B, L, H, D] (f32 or bf16, row-major,
 // contiguous), the scale s of the caller's original head dim, an optional
-// causal mask (key j visible to query i iff j <= i), f32 running max, sum
-// and accumulators, outputs in the input dtype. With bf16 inputs every
-// product is exact in f32; P is rounded to bf16 before P V and dV, and dS
-// before dK and dQ, as the plain version rounds them; the row sum and dS
-// use the unrounded P. With f32 inputs everything stays f32 on CUDA-core
-// FFMAs: no TF32, no tensor cores.
+// causal mask (key j visible to query i iff j <= i), f32 scores, softmax
+// and sums, outputs in the input dtype. With bf16 inputs every product is
+// exact in f32; P is rounded to bf16 before P V and dV, and dS before dK
+// and dQ, as the plain version rounds them; the row sum and dS use the
+// unrounded P. With f32 inputs everything stays f32 on CUDA-core FFMAs: no
+// TF32, no tensor cores.
 //
 // D here is a multiple of 128 above 1024 (the caller zero-pads the head dim
 // up to one, which is exact).
@@ -27,73 +27,78 @@
 // per visible pair forward, 8*D for dK/dV, 6*D for dQ), at the f32 FFMA
 // peak for f32 and at the bf16 tensor-core peak for bf16.
 //
-// The forward (huge_fwd) is a first version, simple and far from that
-// bound: a CTA of 256 threads owns kRows = 4 neighbouring query rows of one
-// (batch, head); thread t owns the features t, t + 256, ... of every row.
-// Keys stream by in tiles of kKeys = 8: a thread forms its partial dot
-// products over its features for the 4 x 8 pairs, the partials are summed
-// across the CTA (a butterfly of xor shuffles in each warp, then the 8
-// warps' sums in warp order, through shared memory), and the f32
-// accumulator O lives in a workspace in global memory that the wrapper
-// allocates, [CTA][row][D], rescaled in place by each tile's change of the
-// running max; causal CTAs stop at the diagonal.
-//
-// The backward splits in two passes, each an ordinary tiled product with
-// no cross-CTA sum. At these widths the score matrix is cheap beside the
-// contractions over D: a visible pair costs 8*D >= 9,216 FLOP in dK/dV
-// and its P and dS 8 bytes in f32.
-// - The score pass (huge_score, both entry points): one CTA of 256 threads
-//   per (batch, head, 64-row own tile, 64-row other tile) that the mask
-//   leaves visible. It forms S and dP of the 64 x 64 tile over all of D, D
-//   in chunks of 32 (f32) or 64 (bf16) features in increasing order,
-//   through a two-stage cp.async ring of the four row tiles (own Q or K,
-//   own dO or V, the other side's). Warps 0-3 form S, warps 4-7 dP, so a
-//   thread holds one tile's sums. f32: register tiles, each thread 8 own
+// Every entry point runs as passes, each an ordinary tiled product or a
+// row sweep with no cross-CTA sum. At these widths the score matrix is
+// cheap beside the contractions over D: a visible pair costs 4*D >= 4,608
+// FLOP forward and 8*D in dK/dV, and its S, P and dS 4 to 8 bytes in f32.
+// - The score pass (huge_score, every entry point): one CTA per (batch,
+//   head, 64-row own tile, 64-row other tile) that the mask leaves visible.
+//   It forms the 64 x 64 tile's sums over all of D, D in chunks of 32
+//   (f32) or 64 (bf16) features in increasing order, through a two-stage
+//   cp.async ring of the row tiles. f32: register tiles, each thread 8 own
 //   rows x 4 other rows, 16-byte shared loads along the features (12 loads
 //   for 128 FFMAs a 4-feature step); bf16: mma.sync m16n8k16 fed by
-//   ldmatrix, a warp 16 own rows x 64 (three CTAs an SM, two for f32).
-//   The tiles meet in shared memory for the epilogue: P = exp2(S * s *
-//   log2(e) - lse * log2(e)), exact zeros past L and above the diagonal,
-//   dS = (dP - di) * P * s from the unrounded P, both rounded to bf16 for
-//   bf16 inputs, written to a workspace in the input type, one 64 x 64
-//   tile a pair, laid out as the product pass reads its operand:
-//   [key][query] (P^T, then dS^T) for dK/dV, [query][key] (dS) for dQ.
+//   ldmatrix, a warp 16 own rows x 64. The sums meet in shared memory for a
+//   coalesced epilogue.
+//   - Forward: S = Q K^T alone, 128 threads (warps 0-3), a ring of two
+//     tiles (36 KiB, three CTAs an SM). It writes raw f32 S, -inf past L
+//     and above the diagonal, [query][key].
+//   - Backward: S and dP, 256 threads (warps 0-3 S, warps 4-7 dP), a ring
+//     of four tiles (own Q or K, own dO or V, the other side's; three bf16
+//     CTAs an SM, two f32). The epilogue: P = exp2(S * s * log2(e) - lse *
+//     log2(e)), exact zeros past L and above the diagonal, dS = (dP - di) *
+//     P * s from the unrounded P, both rounded to bf16 for bf16 inputs,
+//     written in the input type, laid out as the product pass reads its
+//     operand: [key][query] (P^T, then dS^T) for dK/dV, [query][key] (dS)
+//     for dQ.
+// - The softmax pass (huge_softmax, the forward): a warp a query row, 8
+//   rows a CTA. m = the row's largest S * s * log2(e) over its visible key
+//   tiles; l = sum exp2(S * s * log2(e) - m), each lane its two columns of
+//   every tile in increasing position, then a fixed xor-shuffle tree; lse =
+//   m ln(2) + log(l), written when asked; P = exp2(S * s * log2(e) - lse *
+//   log2(e)), the backward epilogue's expression, so the forward's P and
+//   the backward's rebuilt P are the same bits on the same S and lse. P is
+//   in the input type: f32 over S in place (a tile is read and written by
+//   one warp a row), bf16 to a plane of its own after S.
 // - The product pass (huge_product): one CTA per (batch, head, 64-row own
 //   tile, 128-feature slice of D), 128 threads an output (dK/dV: dV = P^T
-//   dO and dK = dS^T Q, 256 threads; dQ: dQ = dS K, 128). The other side's
-//   visible tiles are summed in increasing position through a two-stage
-//   cp.async ring of the workspace tile and the 64 x 128 slice of dO, Q or
-//   K. f32: each thread 8 own rows x 8 features (16 shared loads for 256
-//   FFMAs a 4-row step); bf16: mma.sync, a warp 16 own rows x 128. The
-//   sums stay in registers and are written once, in the input type.
+//   dO and dK = dS^T Q, 256 threads; dQ: dQ = dS K, 128; the forward: O = P
+//   V, dQ's product with V for K). The other side's visible tiles are
+//   summed in increasing position through a two-stage cp.async ring of the
+//   workspace tile and the 64 x 128 slice of dO, Q, K or V. f32: each
+//   thread 8 own rows x 8 features (16 shared loads for 256 FFMAs a 4-row
+//   step); bf16: mma.sync, a warp 16 own rows x 128. The sums stay in
+//   registers and are written once, in the input type.
 // - Bands: the workspace holds at most 256 MiB (kWsCap). dK/dV bands over
-//   own key tiles and dQ over own query tiles, so every gradient row is
-//   complete in one band: no sum across bands, no atomics. A band is the
-//   most own tiles of all (batch, head)s that fit the cap (one tile of a
-//   group of (batch, head)s where even one tile of every head does not),
-//   the score pass and then the product pass for each, in order on the
-//   caller's stream; under a causal mask each band takes its heaviest own
-//   tiles first (dK/dV's first key tiles, dQ's last query tiles), and so do
-//   the bands. ops/kernels.py::huge_bwd_plan is the same plan in Python;
-//   pio_flash_attn_huge_bwd_plan reports it from the card.
-// What the split does about the first version's faults: a streamed feature
-// serves 64 rows of a tile (not 4); every load is a 16-byte cp.async into
-// shared memory (not a scalar global load); no score is a block reduction;
-// no accumulator lives in global memory (the workspace holds P and dS,
-// written once and read once a feature slice); and the bf16 kernels use
-// the tensor cores. The price is S and dP formed by both entry points, as
-// before, and P and dS through the L2 (one f32 [L, L] plane at L 1024 is
-// 4 MiB).
+//   own key tiles, dQ and the forward over own query tiles, so every output
+//   row is complete in one band: no sum across bands, no atomics. A band is
+//   the most own tiles of all (batch, head)s that fit the cap (one tile of
+//   a group of (batch, head)s where even one tile of every head does not),
+//   its passes in order on the caller's stream; under a causal mask each
+//   band takes its heaviest own tiles first (dK/dV's first key tiles, dQ's
+//   and the forward's last query tiles), and so do the bands. An own tile
+//   of one (batch, head) takes nt 64 x 64 tiles of 4 (f32) or 2 (bf16)
+//   bytes an element a plane: two planes for dK/dV, one for dQ, the f32 S
+//   plane (and the bf16 P plane) for the forward. ops/kernels.py::
+//   huge_fwd_plan and huge_bwd_plan are the same plans in Python;
+//   pio_flash_attn_huge_fwd_plan and pio_flash_attn_huge_bwd_plan report
+//   them from the card.
+// What the passes do about the first versions' faults (a CTA of four query
+// rows, a block reduction for every 8 keys, scalar global loads, an f32
+// accumulator in global memory, no tensor cores): a streamed feature serves
+// the 64 rows of a tile; every load is a 16-byte cp.async into shared
+// memory; no score is a block reduction; no accumulator lives in global
+// memory (the workspace holds S, P and dS, written once and read once a
+// feature slice); and the bf16 kernels use the tensor cores. The price is S
+// formed by every entry point, and S, P and dS through the L2 (one f32
+// [L, L] plane at L 1024 is 4 MiB).
 //
 // Determinism: no atomics; every sum runs in one fixed order (features in
 // increasing order, inside an mma its own fixed order; the other side's
-// tiles and rows in increasing position; the forward's butterfly and warps
-// in order), so two runs give the same bits.
-//
-// Softmax: the running max m is kept in log2 units, S * s * log2(e). The
-// logsumexp is written in natural-log units, m ln(2) + log(l), as the other
-// kernels write it, and the backward rebuilds P = exp2(S * s * log2(e) -
-// lse * log2(e)) from it.
+// tiles and rows in increasing position; a softmax row's lanes over the
+// tiles in increasing position, then a fixed shuffle tree), so two runs
+// give the same bits, and the forward's output bits do not depend on
+// whether it writes the logsumexp.
 
 #include <math.h>
 
@@ -102,209 +107,27 @@
 namespace {
 
 constexpr float kLn2 = 0.6931471805599453f;
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 4;  // rows a CTA owns
-constexpr int kKeys = 8;  // other-side rows a tile
-constexpr int kPairs = kRows * kKeys;
-
-__device__ __forceinline__ float load(float x) { return x; }
-__device__ __forceinline__ float load(bf16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T store(float x);
-template <>
-__device__ __forceinline__ float store<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ bf16 store<bf16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// x as the product's operand: rounded to bf16 for bf16 inputs (as the plain
-// version rounds P and dS), unchanged for f32
-template <typename T>
-__device__ __forceinline__ float operand(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-template <>
-__device__ __forceinline__ float operand<float>(float x) {
-  return x;
-}
-
-// the forward's arguments
-struct Args {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* out0;  // o
-  float* lse_out;
-  float* ws;   // f32 accumulators: [CTA][kRows][D]
-  int B, L, H, D, causal;
-  float scale;
-  cudaStream_t stream;
-};
-
-// element offset of row `pos` of (b, h) in a [B, L, H, D] tensor
-__device__ __forceinline__ size_t row_off(int b, int pos, int h, int L,
-                                          int H, int D) {
-  return (((size_t)b * L + pos) * H + h) * (size_t)D;
-}
-
-// the CTA's workspace: n blocks of kRows rows of D floats
-__device__ __forceinline__ float* cta_ws(const Args& a, int n) {
-  const size_t cta =
-      ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
-  return a.ws + cta * (size_t)n * kRows * a.D;
-}
-
-// Sum the N partials of every thread across the CTA, in a fixed order:
-// a butterfly in each warp, then the warps in order. Every thread returns
-// with all N sums in x. red holds kWarps * N floats, tot N.
-template <int N>
-__device__ __forceinline__ void block_sum(float (&x)[N], float* red,
-                                          float* tot) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-#pragma unroll
-  for (int n = 0; n < N; ++n) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      x[n] += __shfl_xor_sync(0xffffffffu, x[n], o);
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int n = 0; n < N; ++n) red[warp * N + n] = x[n];
-  }
-  __syncthreads();
-  for (int n = threadIdx.x; n < N; n += kThreads) {
-    float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += red[w * N + n];
-    tot[n] = s;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int n = 0; n < N; ++n) x[n] = tot[n];
-  __syncthreads();  // red and tot are free for the next tile
-}
-
-// ---------------------------------------------------------------------------
-// forward: kRows query rows a CTA, keys streamed kKeys at a time
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) huge_fwd(const Args a) {
-  __shared__ float red[kWarps * kPairs];
-  __shared__ float tot[kPairs];
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int L = a.L, H = a.H, D = a.D;
-  const int r0 = blockIdx.x * kRows;
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  float* ws = cta_ws(a, 1);
-  const float c = a.scale * kLog2e;
-
-  for (int i = 0; i < kRows; ++i)
-    for (int d = threadIdx.x; d < D; d += kThreads) ws[i * D + d] = 0.f;
-  float m[kRows], l[kRows];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-  }
-  const int last = min(L - 1, r0 + kRows - 1);
-  const int kend = a.causal ? last + 1 : L;
-  for (int k0 = 0; k0 < kend; k0 += kKeys) {
-    float s[kPairs];
-#pragma unroll
-    for (int n = 0; n < kPairs; ++n) s[n] = 0.f;
-    for (int d = threadIdx.x; d < D; d += kThreads) {
-      float kv[kKeys];
-#pragma unroll
-      for (int r = 0; r < kKeys; ++r)
-        kv[r] = k0 + r < L ? load(k[row_off(b, k0 + r, h, L, H, D) + d]) : 0.f;
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const float qv =
-            r0 + i < L ? load(q[row_off(b, r0 + i, h, L, H, D) + d]) : 0.f;
-#pragma unroll
-        for (int r = 0; r < kKeys; ++r)
-          s[i * kKeys + r] = fmaf(qv, kv[r], s[i * kKeys + r]);
-      }
-    }
-    block_sum<kPairs>(s, red, tot);
-    float alpha[kRows], p[kPairs];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int row = r0 + i;
-      float tmax = -INFINITY;
-#pragma unroll
-      for (int r = 0; r < kKeys; ++r) {
-        const int kpos = k0 + r;
-        const bool seen = row < L && kpos < L && (!a.causal || kpos <= row);
-        s[i * kKeys + r] = seen ? s[i * kKeys + r] * c : -INFINITY;
-        tmax = fmaxf(tmax, s[i * kKeys + r]);
-      }
-      if (tmax == -INFINITY) {  // no key of this tile is visible to the row
-        alpha[i] = 1.f;
-#pragma unroll
-        for (int r = 0; r < kKeys; ++r) p[i * kKeys + r] = 0.f;
-        continue;
-      }
-      const float m_new = fmaxf(m[i], tmax);
-      alpha[i] = exp2f(m[i] - m_new);  // 0 on the first visible tile
-      l[i] *= alpha[i];
-#pragma unroll
-      for (int r = 0; r < kKeys; ++r) {
-        const float pr = exp2f(s[i * kKeys + r] - m_new);  // masked: 0
-        l[i] += pr;
-        p[i * kKeys + r] = operand<T>(pr);
-      }
-      m[i] = m_new;
-    }
-    for (int d = threadIdx.x; d < D; d += kThreads) {
-      float vv[kKeys];
-#pragma unroll
-      for (int r = 0; r < kKeys; ++r)
-        vv[r] = k0 + r < L ? load(v[row_off(b, k0 + r, h, L, H, D) + d]) : 0.f;
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        float acc = ws[i * D + d] * alpha[i];
-#pragma unroll
-        for (int r = 0; r < kKeys; ++r)
-          acc = fmaf(p[i * kKeys + r], vv[r], acc);
-        ws[i * D + d] = acc;
-      }
-    }
-  }
-  T* o = static_cast<T*>(a.out0);
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int row = r0 + i;
-    if (row >= L) break;
-    const float inv = 1.f / l[i];
-    const size_t off = row_off(b, row, h, L, H, D);
-    for (int d = threadIdx.x; d < D; d += kThreads)
-      o[off + d] = store<T>(ws[i * D + d] * inv);
-    if (a.lse_out != nullptr && threadIdx.x == 0)
-      a.lse_out[((size_t)b * H + h) * L + row] = m[i] * kLn2 + logf(l[i]);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// backward: a score pass into a banded workspace, then a product pass
 
 enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
 
 constexpr int kTile = 64;  // rows of a score tile on each side
 constexpr int kTileElems = kTile * kTile;
 constexpr int kOut = 128;  // features of a product CTA's slice
-constexpr int kScoreThreads = 256;
 constexpr int kGroup = 128;  // threads of one product output
-constexpr int kBwdStages = 2;
+constexpr int kStages = 2;
 constexpr int kSB = kTile + 4;  // row stride of the epilogue's f32 tiles
+constexpr int kSoftmaxRows = 8;  // query rows of a softmax CTA, a warp each
 constexpr long long kWsCap = 256ll << 20;  // workspace bytes, at most
+
+// the product pass of a kind: the forward's O = P V is dQ's dS K
+__host__ __device__ constexpr int product_kind(int kind) {
+  return kind == kFwd ? kDq : kind;
+}
+
+// threads of a score CTA: the forward forms S alone, the backward S and dP
+__host__ __device__ constexpr int score_threads(int kind) {
+  return kind == kFwd ? 128 : 256;
+}
 
 // features of a score-pass chunk: 32 f32, 64 bf16 (128 bytes a row)
 template <typename T>
@@ -312,9 +135,11 @@ __host__ __device__ constexpr int chunk() {
   return 128 / (int)sizeof(T);
 }
 
-template <typename T>
+// a score stage's row tiles: own and other Q or K (and, backward, dO or V)
+template <typename T, int KIND>
 __host__ __device__ constexpr int score_smem() {
-  return kBwdStages * 4 * kTile * row_stride<T, chunk<T>()>() * (int)sizeof(T);
+  return kStages * (KIND == kFwd ? 2 : 4) * kTile *
+         row_stride<T, chunk<T>()>() * (int)sizeof(T);
 }
 
 // an output's workspace tile [64][SA] and other-side slice [64][SY] a stage
@@ -325,23 +150,27 @@ __host__ __device__ constexpr int product_stage_elems() {
 
 template <typename T, int KIND>
 __host__ __device__ constexpr int product_smem() {
-  return kBwdStages * (KIND == kDkv ? 2 : 1) * product_stage_elems<T>() *
+  return kStages * (KIND == kDkv ? 2 : 1) * product_stage_elems<T>() *
          (int)sizeof(T);
 }
 
-static_assert(score_smem<float>() >= 2 * kTile * kSB * 4 &&
-                  score_smem<bf16>() >= 2 * kTile * kSB * 4,
-              "the epilogue's S and dP tiles fit in the score ring");
+static_assert(score_smem<float, kDq>() >= 2 * kTile * kSB * 4 &&
+                  score_smem<bf16, kDq>() >= 2 * kTile * kSB * 4 &&
+                  score_smem<float, kFwd>() >= kTile * kSB * 4 &&
+                  score_smem<bf16, kFwd>() >= kTile * kSB * 4,
+              "the epilogue's S (and dP) tiles fit in the score ring");
 static_assert(product_smem<float, kDkv>() <= 232448 &&
-                  score_smem<float>() <= 232448,
+                  score_smem<float, kDq>() <= 232448,
               "a CTA's shared memory");
 
-struct Bwd {
+// a launch's arguments (the forward's product pass gets V for k and O for
+// out0)
+struct Args {
   const void *q, *k, *v, *dout;
   const float *lse, *di;
-  void* out0;  // dk (dK/dV), dq (dQ)
+  void* out0;  // dk (dK/dV), dq (dQ), o (the forward's product)
   void* out1;  // dv (dK/dV)
-  void* ws;    // one band's P and dS tiles, in the input type
+  void* ws;    // one band's tiles: S (forward); P and dS, in the input type
   int B, L, H, D, causal;
   float scale;
   cudaStream_t stream;
@@ -355,8 +184,8 @@ struct Band {
 };
 
 // the other side's tiles that own tile t sees: dK/dV owns key tiles and,
-// under a causal mask, sees the query tiles from its own on; dQ owns query
-// tiles and sees the key tiles up to its own
+// under a causal mask, sees the query tiles from its own on; dQ and the
+// forward own query tiles and see the key tiles up to their own
 __host__ __device__ inline int seen_tiles(int kind, bool causal, int t,
                                           int nt) {
   return !causal ? nt : kind == kDkv ? nt - t : t + 1;
@@ -437,23 +266,36 @@ __device__ __forceinline__ void put4(bf16* p, const float (&x)[4]) {
       make_uint2(pack_bf16(x[0], x[1]), pack_bf16(x[2], x[3]));
 }
 
-// Score CTAs an SM: f32 2 (128 registers; at 3, 80 registers spill and
-// the pass is slower), bf16 3 (all of a 272-CTA pass resident, and more
+// two neighbouring workspace values, likewise
+__device__ __forceinline__ void put2(float* p, float x0, float x1) {
+  *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
+}
+__device__ __forceinline__ void put2(bf16* p, float x0, float x1) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(x0, x1);
+}
+
+// Score CTAs an SM: the forward's 128-thread CTAs 3 (a 272-CTA pass in
+// one wave; at 4 the f32 CTA spills 60 bytes at 128 registers and its pass
+// is 5% slower); backward f32 2 (128 registers; at 3, 80 registers spill
+// and the pass is slower), bf16 3 (all of a 272-CTA pass resident, and more
 // loads in flight: the bf16 pass waits on them)
-template <typename T>
+template <typename T, int KIND>
 __host__ __device__ constexpr int score_ctas_an_sm() {
-  return sizeof(T) == 4 ? 2 : 3;
+  return KIND == kFwd || sizeof(T) == 2 ? 3 : 2;
 }
 
 template <typename T, int KIND, bool CAUSAL>
-__global__ void __launch_bounds__(kScoreThreads, score_ctas_an_sm<T>())
-    huge_score(const Bwd a, const Band band) {
+__global__ void __launch_bounds__(score_threads(KIND),
+                                  score_ctas_an_sm<T, KIND>())
+    huge_score(const Args a, const Band band) {
   constexpr int CH = chunk<T>(), SC = row_stride<T, CH>();
+  constexpr int NT = score_threads(KIND), NTILES = KIND == kFwd ? 2 : 4;
+  constexpr int NVEC = KIND == kFwd ? 1 : kTile;
   extern __shared__ __align__(16) unsigned char smem[];
-  // [stage][own S operand, other S operand, own dP operand, other dP
-  // operand][row][SC]
+  // [stage][own S operand, other S operand(, own dP operand, other dP
+  // operand)][row][SC]
   T* ring = reinterpret_cast<T*>(smem);
-  __shared__ float lse_s[kTile], di_s[kTile];  // the tile's query rows
+  __shared__ float lse_s[NVEC], di_s[NVEC];  // the tile's query rows
   const int L = a.L, H = a.H, D = a.D;
 
   // the tile pair: blockIdx.x counts the visible pairs of the band's own
@@ -467,31 +309,36 @@ __global__ void __launch_bounds__(kScoreThreads, score_ctas_an_sm<T>())
 
   const long long rs = (long long)H * D;
   const long long base = ((long long)b * L * H + h) * D;
-  const long long rbase = ((long long)b * H + h) * L;
-  // dK/dV: S^T = K Q^T, dP^T = V dO^T; dQ: S = Q K^T, dP = dO V^T
+  // dK/dV: S^T = K Q^T, dP^T = V dO^T; dQ: S = Q K^T, dP = dO V^T; the
+  // forward: S = Q K^T
   const T* own0 = static_cast<const T*>(KIND == kDkv ? a.k : a.q);
   const T* oth0 = static_cast<const T*>(KIND == kDkv ? a.q : a.k);
   const T* own1 = static_cast<const T*>(KIND == kDkv ? a.v : a.dout);
   const T* oth1 = static_cast<const T*>(KIND == kDkv ? a.dout : a.v);
 
   auto load_chunk = [&](int c, int st) {
-    T* s = ring + st * 4 * kTile * SC;
+    T* s = ring + st * NTILES * kTile * SC;
     const long long off = base + (long long)c * CH;
-    stage_rows<T, CH, kTile, kScoreThreads>(s, own0, off, rs, own_r0, L, CH);
-    stage_rows<T, CH, kTile, kScoreThreads>(s + kTile * SC, oth0, off, rs,
-                                            oth_r0, L, CH);
-    stage_rows<T, CH, kTile, kScoreThreads>(s + 2 * kTile * SC, own1, off,
-                                            rs, own_r0, L, CH);
-    stage_rows<T, CH, kTile, kScoreThreads>(s + 3 * kTile * SC, oth1, off,
-                                            rs, oth_r0, L, CH);
+    stage_rows<T, CH, kTile, NT>(s, own0, off, rs, own_r0, L, CH);
+    stage_rows<T, CH, kTile, NT>(s + kTile * SC, oth0, off, rs, oth_r0, L,
+                                 CH);
+    if constexpr (KIND != kFwd) {
+      stage_rows<T, CH, kTile, NT>(s + 2 * kTile * SC, own1, off, rs, own_r0,
+                                   L, CH);
+      stage_rows<T, CH, kTile, NT>(s + 3 * kTile * SC, oth1, off, rs, oth_r0,
+                                   L, CH);
+    }
     cp_async_commit();
   };
-  const int q_r0 = KIND == kDkv ? oth_r0 : own_r0;
-  stage_vec<kTile, kScoreThreads>(lse_s, a.lse, rbase, q_r0, L);
-  stage_vec<kTile, kScoreThreads>(di_s, a.di, rbase, q_r0, L);
+  if constexpr (KIND != kFwd) {
+    const int q_r0 = KIND == kDkv ? oth_r0 : own_r0;
+    const long long rbase = ((long long)b * H + h) * L;
+    stage_vec<kTile, NT>(lse_s, a.lse, rbase, q_r0, L);
+    stage_vec<kTile, NT>(di_s, a.di, rbase, q_r0, L);
+  }
   load_chunk(0, 0);  // lse and di travel in the first group
 
-  const int half = threadIdx.x / 128;  // 0: S, 1: dP
+  const int half = KIND == kFwd ? 0 : threadIdx.x / 128;  // 0: S, 1: dP
   float acc[8][4];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
@@ -501,44 +348,121 @@ __global__ void __launch_bounds__(kScoreThreads, score_ctas_an_sm<T>())
   for (int c = 0; c < chunks; ++c) {
     cp_async_wait_all();
     __syncthreads();  // chunk c landed; stage c + 1 (c - 1's) is free
-    if (c + 1 < chunks) load_chunk(c + 1, (c + 1) % kBwdStages);
-    const T* X = ring + ((c % kBwdStages) * 4 + 2 * half) * kTile * SC;
+    if (c + 1 < chunks) load_chunk(c + 1, (c + 1) % kStages);
+    const T* X = ring + ((c % kStages) * NTILES + 2 * half) * kTile * SC;
     score_chunk(acc, X, X + kTile * SC);
   }
-  __syncthreads();  // every chunk read: the ring holds the S and dP tiles
+  __syncthreads();  // every chunk read: the ring holds the S (and dP) tiles
   float* Sb = reinterpret_cast<float*>(smem);  // [own][kSB], then dP
   put_acc(Sb + half * kTile * kSB, acc, T());
   __syncthreads();
 
-  const float scale = a.scale, scale2 = a.scale * kLog2e;
-  constexpr int planes = KIND == kDkv ? 2 : 1;
-  T* ws = static_cast<T*>(a.ws) +
-          (((long long)blockIdx.y * band.tiles + (t - band.t0)) * band.nt +
-           o) * planes * kTileElems;
-  for (int idx = threadIdx.x; idx < kTileElems / 4; idx += kScoreThreads) {
-    const int r = idx / (kTile / 4), c = (idx % (kTile / 4)) * 4;
-    const float4 s4 = *reinterpret_cast<const float4*>(&Sb[r * kSB + c]);
-    const float4 d4 =
-        *reinterpret_cast<const float4*>(&Sb[(kTile + r) * kSB + c]);
-    float p[4], ds[4];
+  const long long tile =
+      ((long long)blockIdx.y * band.tiles + (t - band.t0)) * band.nt + o;
+  if constexpr (KIND == kFwd) {
+    // raw S, f32, -inf where the mask hides the pair
+    float* ws = static_cast<float*>(a.ws) + tile * kTileElems;
+    for (int idx = threadIdx.x; idx < kTileElems / 4; idx += NT) {
+      const int r = idx / (kTile / 4), c = (idx % (kTile / 4)) * 4;
+      const float4 s4 = *reinterpret_cast<const float4*>(&Sb[r * kSB + c]);
+      float s[4];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int own = own_r0 + r, oth = oth_r0 + c + e;
-      const int query = KIND == kDkv ? oth : own;
-      const int key = KIND == kDkv ? own : oth;
-      const int ql = KIND == kDkv ? c + e : r;  // in lse_s and di_s
-      const bool seen = query < L && key < L && (!CAUSAL || key <= query);
-      p[e] = seen ? exp_lse(lane4(s4, e), scale2, lse_s[ql]) : 0.f;
-      ds[e] = seen ? (lane4(d4, e) - di_s[ql]) * p[e] * scale : 0.f;
+      for (int e = 0; e < 4; ++e) {
+        const int query = own_r0 + r, key = oth_r0 + c + e;
+        const bool seen = query < L && key < L && (!CAUSAL || key <= query);
+        s[e] = seen ? lane4(s4, e) : -INFINITY;
+      }
+      put4(ws + r * kTile + c, s);
     }
-    if (KIND == kDkv) put4(ws + r * kTile + c, p);
-    put4(ws + (planes - 1) * kTileElems + r * kTile + c, ds);
+  } else {
+    constexpr int planes = KIND == kDkv ? 2 : 1;
+    const float scale = a.scale, scale2 = a.scale * kLog2e;
+    T* ws = static_cast<T*>(a.ws) + tile * planes * kTileElems;
+    for (int idx = threadIdx.x; idx < kTileElems / 4; idx += NT) {
+      const int r = idx / (kTile / 4), c = (idx % (kTile / 4)) * 4;
+      const float4 s4 = *reinterpret_cast<const float4*>(&Sb[r * kSB + c]);
+      const float4 d4 =
+          *reinterpret_cast<const float4*>(&Sb[(kTile + r) * kSB + c]);
+      float p[4], ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int own = own_r0 + r, oth = oth_r0 + c + e;
+        const int query = KIND == kDkv ? oth : own;
+        const int key = KIND == kDkv ? own : oth;
+        const int ql = KIND == kDkv ? c + e : r;  // in lse_s and di_s
+        const bool seen = query < L && key < L && (!CAUSAL || key <= query);
+        p[e] = seen ? exp_lse(lane4(s4, e), scale2, lse_s[ql]) : 0.f;
+        ds[e] = seen ? (lane4(d4, e) - di_s[ql]) * p[e] * scale : 0.f;
+      }
+      if (KIND == kDkv) put4(ws + r * kTile + c, p);
+      put4(ws + (planes - 1) * kTileElems + r * kTile + c, ds);
+    }
+  }
+}
+
+// The forward's softmax over one band's S tiles: warp w of CTA (x, y) takes
+// query row 8 (x % 8) + w of own tile z = x / 8 in the product pass's
+// order (the band's last tile first) of (batch, head) bh0 + y. s: the S
+// plane; p: where P goes (s itself for f32); lse: null or [B, H, L].
+template <typename T, bool CAUSAL>
+__global__ void __launch_bounds__(32 * kSoftmaxRows)
+    huge_softmax(float* s, T* p, float* __restrict__ lse, const Band band,
+                 int L, float scale) {
+  constexpr int kGroups = kTile / kSoftmaxRows;
+  const int lane = threadIdx.x & 31;
+  const int t = band.t0 + band.tiles - 1 - (int)blockIdx.x / kGroups;
+  const int r = (blockIdx.x % kGroups) * kSoftmaxRows + threadIdx.x / 32;
+  const int row = t * kTile + r;
+  const int n = seen_tiles(kFwd, CAUSAL, t, band.nt);  // key tiles 0..n-1
+  // this lane's two columns of key tile 0; key tile o's are o tiles on
+  const long long at =
+      ((long long)blockIdx.y * band.tiles + (t - band.t0)) * band.nt *
+          kTileElems +
+      r * kTile + 2 * lane;
+  if (row >= L) {  // a padded row: P zero (its O row is never written)
+    for (int o = 0; o < n; ++o)
+      put2(p + at + (long long)o * kTileElems, 0.f, 0.f);
+    return;
+  }
+  const float c = scale * kLog2e;
+  auto pair = [&](int o) {
+    return *reinterpret_cast<const float2*>(s + at +
+                                            (long long)o * kTileElems);
+  };
+  float m = -INFINITY;
+#pragma unroll 4
+  for (int o = 0; o < n; ++o) {
+    const float2 x = pair(o);
+    m = fmaxf(m, fmaxf(x.x * c, x.y * c));
+  }
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, d));
+  float l = 0.f;  // masked pairs: exp2(-inf) = 0
+#pragma unroll 4
+  for (int o = 0; o < n; ++o) {
+    const float2 x = pair(o);
+    l += exp2f(fmaf(x.x, c, -m));
+    l += exp2f(fmaf(x.y, c, -m));
+  }
+  // a butterfly: every lane adds the same two values at every level, so all
+  // hold the same bits
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) l += __shfl_xor_sync(0xffffffffu, l, d);
+  const float row_lse = m * kLn2 + logf(l);
+  if (lse != nullptr && lane == 0)
+    lse[(long long)(band.bh0 + blockIdx.y) * L + row] = row_lse;
+#pragma unroll 4
+  for (int o = 0; o < n; ++o) {
+    const float2 x = pair(o);
+    put2(p + at + (long long)o * kTileElems, exp_lse(x.x, c, row_lse),
+         exp_lse(x.y, c, row_lse));
   }
 }
 
 // f32: this thread's 8 own rows rg + 8 i by the 8 features 4 cg + 64 c + e
 // of the slice (acc[2 i + c][e]) += A Y over one 64-row other tile, rows in
-// increasing order; A [own][68] (P^T, dS^T or dS), Y [other][132]
+// increasing order; A [own][68] (P^T, dS^T, dS or P), Y [other][132]
 __device__ __forceinline__ void product_tile(float (&acc)[16][4],
                                              const float* A, const float* Y) {
   constexpr int SA = row_stride<float, kTile>();
@@ -622,7 +546,7 @@ __device__ __forceinline__ void write_out(bf16* __restrict__ out,
 
 template <typename T, int KIND, bool CAUSAL>
 __global__ void __launch_bounds__(KIND == kDkv ? 2 * kGroup : kGroup)
-    huge_product(const Bwd a, const Band band) {
+    huge_product(const Args a, const Band band) {
   constexpr int NOUT = KIND == kDkv ? 2 : 1, NT = NOUT * kGroup;
   constexpr int SA = row_stride<T, kTile>();
   constexpr int OUT_ELEMS = product_stage_elems<T>();
@@ -641,7 +565,7 @@ __global__ void __launch_bounds__(KIND == kDkv ? 2 * kGroup : kGroup)
   const T* ws = static_cast<const T*>(a.ws) +
                 ((long long)blockIdx.y * band.tiles + (t - band.t0)) *
                     band.nt * NOUT * kTileElems;
-  // dK/dV: dV = P^T dO, dK = dS^T Q; dQ: dQ = dS K
+  // dK/dV: dV = P^T dO, dK = dS^T Q; dQ: dQ = dS K (the forward: O = P V)
   const T* y0 = static_cast<const T*>(KIND == kDkv ? a.dout : a.k);
   const T* y1 = static_cast<const T*>(a.q);
 
@@ -672,8 +596,8 @@ __global__ void __launch_bounds__(KIND == kDkv ? 2 * kGroup : kGroup)
     const int it = o - o0;
     cp_async_wait_all();
     __syncthreads();  // tile o landed; stage it + 1 (it - 1's) is free
-    if (o + 1 < o1) load_tile(o + 1, (it + 1) % kBwdStages);
-    const T* s = ring + ((it % kBwdStages) * NOUT + m) * OUT_ELEMS;
+    if (o + 1 < o1) load_tile(o + 1, (it + 1) % kStages);
+    const T* s = ring + ((it % kStages) * NOUT + m) * OUT_ELEMS;
     product_tile(acc, s, s + kTile * SA);
   }
   T* out = static_cast<T*>(KIND == kDkv && m == 0 ? a.out1 : a.out0);
@@ -688,33 +612,23 @@ bool shape_ok(int B, int L, int H, int D) {
          D % 128 == 0;
 }
 
-template <typename T>
-cudaError_t launch_fwd_t(const Args& a) {
-  const dim3 grid((a.L + kRows - 1) / kRows, a.H, a.B);
-  huge_fwd<T><<<grid, kThreads, 0, a.stream>>>(a);
-  return cudaGetLastError();
-}
-
-int launch_fwd(const Args& a, int dtype) {
-  if (!shape_ok(a.B, a.L, a.H, a.D) || a.ws == nullptr ||
-      (dtype != 0 && dtype != 1))
-    return (int)cudaErrorInvalidValue;
-  return (int)(dtype == 0 ? launch_fwd_t<float>(a) : launch_fwd_t<bf16>(a));
-}
-
-// The backward's plan (ops/kernels.py::huge_bwd_plan): tiles and (batch,
-// head)s a band, the bands, and the workspace bytes
+// A launch's plan (ops/kernels.py::huge_fwd_plan, huge_bwd_plan): tiles and
+// (batch, head)s a band, the bands, and the workspace bytes
 struct Plan {
   int nt, tiles, heads;
   long long bh, bands, tile_bands, ws_bytes;
 };
 
-bool bwd_plan(int B, int L, int H, int D, int dtype, int kind, Plan* p) {
+bool plan_of(int B, int L, int H, int D, int dtype, int kind, Plan* p) {
   if (!shape_ok(B, L, H, D) || (dtype != 0 && dtype != 1) ||
-      (kind != kDq && kind != kDkv))
+      (kind != kFwd && kind != kDq && kind != kDkv))
     return false;
+  // bytes of one visible pair: the forward's f32 S (and its bf16 P), the
+  // backward's P and dS or dS alone in the input type
+  const long long esize = dtype == 0 ? 4 : 2;
   const long long pair =
-      (long long)(kind == kDkv ? 2 : 1) * kTileElems * (dtype == 0 ? 4 : 2);
+      kTileElems * (kind == kFwd ? 4 + (dtype == 0 ? 0 : 2)
+                                 : (kind == kDkv ? 2 : 1) * esize);
   const long long nt = (L + kTile - 1) / kTile, bh = (long long)B * H;
   const long long col = nt * pair;  // one own tile of one (batch, head)
   if (col > kWsCap) return false;
@@ -735,8 +649,8 @@ bool bwd_plan(int B, int L, int H, int D, int dtype, int kind, Plan* p) {
 }
 
 // band i in launch order: head groups in order, each its tile bands
-// heaviest first (dK/dV from the first key tile, dQ from the last query
-// tile)
+// heaviest first (dK/dV from the first key tile, dQ and the forward from
+// the last query tile)
 Band band_of(const Plan& p, int kind, long long i) {
   const long long g = i / p.tile_bands, tb = i % p.tile_bands;
   Band band;
@@ -762,58 +676,70 @@ int score_ctas(const Band& band, int kind, bool causal) {
   return n;
 }
 
-template <typename T, int KIND, bool CAUSAL>
-cudaError_t launch_bwd(const Bwd& a, const Plan& p) {
-  for (long long i = 0; i < p.bands; ++i) {
-    const Band band = band_of(p, KIND, i);
-    huge_score<T, KIND, CAUSAL>
-        <<<dim3(score_ctas(band, KIND, CAUSAL), band.nbh), kScoreThreads,
-           score_smem<T>(), a.stream>>>(a, band);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    huge_product<T, KIND, CAUSAL>
-        <<<dim3(a.D / kOut, band.nbh, band.tiles),
-           KIND == kDkv ? 2 * kGroup : kGroup, product_smem<T, KIND>(),
-           a.stream>>>(a, band);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  return cudaSuccess;
+// The passes of a launch: 0 score, 1 product, 2 the forward's softmax;
+// each pass's kernel, threads, dynamic shared memory and grid for a band
+template <typename T, int KIND>
+void* pass_kernel_t(bool causal, int pass) {
+  constexpr int PK = product_kind(KIND);
+  if (pass == 0)
+    return causal ? (void*)huge_score<T, KIND, true>
+                  : (void*)huge_score<T, KIND, false>;
+  if (pass == 1)
+    return causal ? (void*)huge_product<T, PK, true>
+                  : (void*)huge_product<T, PK, false>;
+  return causal ? (void*)huge_softmax<T, true> : (void*)huge_softmax<T, false>;
 }
 
-// the backward's kernels: pass 0 score, 1 product
-void* bwd_kernel(int dtype, int kind, bool causal, int pass) {
-#define PIO_HUGE_PICK(T, K)                                              \
-  (pass == 0 ? (causal ? (void*)huge_score<T, K, true>                   \
-                       : (void*)huge_score<T, K, false>)                 \
-             : (causal ? (void*)huge_product<T, K, true>                 \
-                       : (void*)huge_product<T, K, false>))
-  if (dtype == 0) return kind == kDkv ? PIO_HUGE_PICK(float, kDkv)
-                                      : PIO_HUGE_PICK(float, kDq);
-  return kind == kDkv ? PIO_HUGE_PICK(bf16, kDkv) : PIO_HUGE_PICK(bf16, kDq);
-#undef PIO_HUGE_PICK
+template <typename T>
+void* pass_kernel_k(int kind, bool causal, int pass) {
+  return kind == kFwd  ? pass_kernel_t<T, kFwd>(causal, pass)
+         : kind == kDq ? pass_kernel_t<T, kDq>(causal, pass)
+                       : pass_kernel_t<T, kDkv>(causal, pass);
 }
 
-int bwd_smem(int dtype, int kind, int pass) {
-  if (pass == 0) return dtype == 0 ? score_smem<float>() : score_smem<bf16>();
-  if (dtype == 0)
-    return kind == kDkv ? product_smem<float, kDkv>()
-                        : product_smem<float, kDq>();
-  return kind == kDkv ? product_smem<bf16, kDkv>() : product_smem<bf16, kDq>();
+void* pass_kernel(int dtype, int kind, bool causal, int pass) {
+  return dtype == 0 ? pass_kernel_k<float>(kind, causal, pass)
+                    : pass_kernel_k<bf16>(kind, causal, pass);
 }
 
-// Raise the dynamic shared-memory ceiling of the sixteen backward kernels,
-// once a process
-cudaError_t bwd_init() {
+template <typename T>
+int pass_smem_t(int kind, int pass) {
+  if (pass == 0)
+    return kind == kFwd ? score_smem<T, kFwd>() : score_smem<T, kDq>();
+  if (pass == 1)
+    return kind == kDkv ? product_smem<T, kDkv>() : product_smem<T, kDq>();
+  return 0;
+}
+
+int pass_smem(int dtype, int kind, int pass) {
+  return dtype == 0 ? pass_smem_t<float>(kind, pass)
+                    : pass_smem_t<bf16>(kind, pass);
+}
+
+int pass_threads(int kind, int pass) {
+  return pass == 0   ? score_threads(kind)
+         : pass == 1 ? (kind == kDkv ? 2 * kGroup : kGroup)
+                     : 32 * kSoftmaxRows;
+}
+
+dim3 pass_grid(const Band& band, int kind, bool causal, int D, int pass) {
+  if (pass == 0) return dim3(score_ctas(band, kind, causal), band.nbh);
+  if (pass == 1) return dim3(D / kOut, band.nbh, band.tiles);
+  return dim3(kTile / kSoftmaxRows * band.tiles, band.nbh);
+}
+
+// Raise the dynamic shared-memory ceiling of every score and product
+// kernel, once a process
+cudaError_t huge_init() {
   static const cudaError_t err = [] {
     for (int dtype = 0; dtype < 2; ++dtype)
-      for (int kind = kDq; kind <= kDkv; ++kind)
+      for (int kind = kFwd; kind <= kDkv; ++kind)
         for (int causal = 0; causal < 2; ++causal)
           for (int pass = 0; pass < 2; ++pass) {
             const cudaError_t e = cudaFuncSetAttribute(
-                bwd_kernel(dtype, kind, causal, pass),
+                pass_kernel(dtype, kind, causal, pass),
                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                bwd_smem(dtype, kind, pass));
+                pass_smem(dtype, kind, pass));
             if (e != cudaSuccess) return e;
           }
     return cudaSuccess;
@@ -821,11 +747,79 @@ cudaError_t bwd_init() {
   return err;
 }
 
-int launch_bwd_any(const Bwd& a, int dtype, int kind) {
+// The forward, band by band: S into the workspace's f32 plane, the softmax
+// (P over S for f32, into the bf16 plane after the plan's S plane for
+// bf16), then O = P V as dQ's product with V for K and P for dS.
+template <typename T, bool CAUSAL>
+cudaError_t launch_fwd(const Args& a, float* lse, const Plan& p) {
+  float* s = static_cast<float*>(a.ws);
+  T* pw = reinterpret_cast<T*>(
+      sizeof(T) == 4 ? s
+                     : s + (long long)p.heads * p.tiles * p.nt * kTileElems);
+  Args prod = a;
+  prod.k = a.v;
+  prod.ws = pw;
+  for (long long i = 0; i < p.bands; ++i) {
+    const Band band = band_of(p, kFwd, i);
+    huge_score<T, kFwd, CAUSAL>
+        <<<pass_grid(band, kFwd, CAUSAL, a.D, 0), score_threads(kFwd),
+           score_smem<T, kFwd>(), a.stream>>>(a, band);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    huge_softmax<T, CAUSAL>
+        <<<pass_grid(band, kFwd, CAUSAL, a.D, 2), 32 * kSoftmaxRows, 0,
+           a.stream>>>(s, pw, lse, band, a.L, a.scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    huge_product<T, kDq, CAUSAL>
+        <<<pass_grid(band, kFwd, CAUSAL, a.D, 1), kGroup,
+           product_smem<T, kDq>(), a.stream>>>(prod, band);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+int launch_fwd_any(const Args& a, float* lse, int dtype) {
   Plan p;
-  if (!bwd_plan(a.B, a.L, a.H, a.D, dtype, kind, &p) || a.ws == nullptr)
+  if (!plan_of(a.B, a.L, a.H, a.D, dtype, kFwd, &p) || a.ws == nullptr)
     return (int)cudaErrorInvalidValue;
-  const cudaError_t init = bwd_init();
+  const cudaError_t init = huge_init();
+  if (init != cudaSuccess) return (int)init;
+  cudaError_t err;
+  if (dtype == 0)
+    err = a.causal ? launch_fwd<float, true>(a, lse, p)
+                   : launch_fwd<float, false>(a, lse, p);
+  else
+    err = a.causal ? launch_fwd<bf16, true>(a, lse, p)
+                   : launch_fwd<bf16, false>(a, lse, p);
+  return (int)err;
+}
+
+template <typename T, int KIND, bool CAUSAL>
+cudaError_t launch_bwd(const Args& a, const Plan& p) {
+  for (long long i = 0; i < p.bands; ++i) {
+    const Band band = band_of(p, KIND, i);
+    huge_score<T, KIND, CAUSAL>
+        <<<pass_grid(band, KIND, CAUSAL, a.D, 0), score_threads(KIND),
+           score_smem<T, KIND>(), a.stream>>>(a, band);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    huge_product<T, KIND, CAUSAL>
+        <<<pass_grid(band, KIND, CAUSAL, a.D, 1), pass_threads(KIND, 1),
+           product_smem<T, KIND>(), a.stream>>>(a, band);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+int launch_bwd_any(const Args& a, int dtype, int kind) {
+  Plan p;
+  if ((kind != kDq && kind != kDkv) ||
+      !plan_of(a.B, a.L, a.H, a.D, dtype, kind, &p) || a.ws == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t init = huge_init();
   if (init != cudaSuccess) return (int)init;
   cudaError_t err;
   if (dtype == 0) {
@@ -846,39 +840,64 @@ int launch_bwd_any(const Bwd& a, int dtype, int kind) {
   return (int)err;
 }
 
+// A launch's plan from the card: out = {own tiles a band, (batch, head)s a
+// band, bands, workspace bytes, then for each pass of `order`, in the first
+// band: grid x, y, z, threads a CTA, dynamic shared-memory bytes and the
+// CTAs an SM holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor)}
+int report_plan(int B, int L, int H, int D, int dtype, int kind, bool causal,
+                const int* order, int passes, long long* out) {
+  Plan p;
+  if (!plan_of(B, L, H, D, dtype, kind, &p))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = huge_init();
+  if (err != cudaSuccess) return (int)err;
+  const Band band = band_of(p, kind, 0);
+  const long long head[4] = {p.tiles, p.heads, p.bands, p.ws_bytes};
+  for (int i = 0; i < 4; ++i) out[i] = head[i];
+  for (int i = 0; i < passes; ++i) {
+    const int pass = order[i];
+    const dim3 grid = pass_grid(band, kind, causal, D, pass);
+    const int threads = pass_threads(kind, pass);
+    const int smem = pass_smem(dtype, kind, pass);
+    int blocks = 0;
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, pass_kernel(dtype, kind, causal, pass), threads, smem);
+    if (e != cudaSuccess && err == cudaSuccess) err = e;
+    const long long got[6] = {grid.x, grid.y, grid.z, threads, smem, blocks};
+    for (int j = 0; j < 6; ++j) out[4 + 6 * i + j] = got[j];
+  }
+  return (int)err;
+}
+
 }  // namespace
 
 extern "C" {
 
 // Bytes of workspace a call of `kind` (0 forward, 1 dQ, 2 dK/dV) with
-// inputs of `dtype` (0 f32, 1 bf16) needs at [B, L, H, D]: the forward's
-// f32 accumulators, or the backward's band of P and dS tiles in the input
-// type (at most 256 MiB); -1 for a shape the kernels do not take.
+// inputs of `dtype` (0 f32, 1 bf16) needs at [B, L, H, D]: one band's
+// tiles, at most 256 MiB (the forward's f32 S, and for bf16 its P; the
+// backward's P and dS in the input type); -1 for a shape the kernels do
+// not take.
 long long pio_flash_attn_huge_workspace(int B, int L, int H, int D, int kind,
                                         int dtype) {
-  if (kind == kFwd) {
-    if (!shape_ok(B, L, H, D)) return -1;
-    const long long ctas =
-        (long long)((L + kRows - 1) / kRows) * (long long)H * (long long)B;
-    return ctas * kRows * (long long)D * (long long)sizeof(float);
-  }
   Plan p;
-  return bwd_plan(B, L, H, D, dtype, kind, &p) ? p.ws_bytes : -1;
+  return plan_of(B, L, H, D, dtype, kind, &p) ? p.ws_bytes : -1;
 }
 
 // q, k, v, o: [B, L, H, D] contiguous device buffers of one type (dtype 0 =
-// f32, 1 = bf16); D a multiple of 128 above 1024; L >= 1, B and H <= 65535
-// (the wrapper checks). lse: null, or a [B, H, L] f32 device buffer that
-// receives each row's logsumexp. ws: pio_flash_attn_huge_workspace(...,
-// 0, dtype) bytes of device memory. Launches on `stream`; returns the
-// cudaError of the launch.
+// f32, 1 = bf16), 16-byte aligned; D a multiple of 128 above 1024; L >= 1,
+// B and H <= 65535 (the wrapper checks). lse: null, or a [B, H, L] f32
+// device buffer that receives each row's logsumexp. ws:
+// pio_flash_attn_huge_workspace(..., 0, dtype) bytes of device memory,
+// 16-byte aligned. Launches the score, softmax and product pass of every
+// band on `stream`; returns the first cudaError.
 int pio_flash_attn_huge_fwd(const void* q, const void* k, const void* v,
                             void* o, void* lse, void* ws, int B, int L, int H,
                             int D, int dtype, int causal, float scale,
                             void* stream) {
-  const Args a{q, k, v, o, static_cast<float*>(lse), static_cast<float*>(ws),
-               B, L, H, D, causal, scale, static_cast<cudaStream_t>(stream)};
-  return launch_fwd(a, dtype);
+  const Args a{q, k, v, nullptr, nullptr, nullptr, o, nullptr, ws, B, L, H,
+               D, causal, scale, static_cast<cudaStream_t>(stream)};
+  return launch_fwd_any(a, static_cast<float*>(lse), dtype);
 }
 
 // dk, dv of the forward for the output gradient do: q, k, v, do, dk, dv as
@@ -891,9 +910,9 @@ int pio_flash_attn_huge_bwd_dkv(const void* q, const void* k, const void* v,
                                 const void* di, void* dk, void* dv, void* ws,
                                 int B, int L, int H, int D, int dtype,
                                 int causal, float scale, void* stream) {
-  const Bwd a{q, k, v, dout, static_cast<const float*>(lse),
-              static_cast<const float*>(di), dk, dv, ws, B, L, H, D, causal,
-              scale, static_cast<cudaStream_t>(stream)};
+  const Args a{q, k, v, dout, static_cast<const float*>(lse),
+               static_cast<const float*>(di), dk, dv, ws, B, L, H, D, causal,
+               scale, static_cast<cudaStream_t>(stream)};
   return launch_bwd_any(a, dtype, kDkv);
 }
 
@@ -904,48 +923,34 @@ int pio_flash_attn_huge_bwd_dq(const void* q, const void* k, const void* v,
                                const void* di, void* dq, void* ws, int B,
                                int L, int H, int D, int dtype, int causal,
                                float scale, void* stream) {
-  const Bwd a{q, k, v, dout, static_cast<const float*>(lse),
-              static_cast<const float*>(di), dq, nullptr, ws, B, L, H, D,
-              causal, scale, static_cast<cudaStream_t>(stream)};
+  const Args a{q, k, v, dout, static_cast<const float*>(lse),
+               static_cast<const float*>(di), dq, nullptr, ws, B, L, H, D,
+               causal, scale, static_cast<cudaStream_t>(stream)};
   return launch_bwd_any(a, dtype, kDq);
+}
+
+// The forward's plan, as ops/kernels.py::huge_fwd_plan computes it: out =
+// {own tiles a band, (batch, head)s a band, bands, workspace bytes, then
+// for the first band the score pass's grid x, y, z, threads a CTA, dynamic
+// shared-memory bytes and the CTAs an SM holds at once, and the same six
+// for the softmax pass and for the product pass}. Returns the cudaError of
+// the query.
+int pio_flash_attn_huge_fwd_plan(int B, int L, int H, int D, int dtype,
+                                 int causal, long long* out) {
+  const int order[3] = {0, 2, 1};
+  return report_plan(B, L, H, D, dtype, kFwd, causal != 0, order, 3, out);
 }
 
 // The backward's plan for `kind` (1 dQ, 2 dK/dV), as ops/kernels.py::
 // huge_bwd_plan computes it: out = {own tiles a band, (batch, head)s a
 // band, bands, workspace bytes, then for the first band the score pass's
-// grid x, y, z, threads a CTA, dynamic shared-memory bytes and the CTAs an
-// SM holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor), and
-// the same six for the product pass}. Returns the cudaError of the query.
+// six fields as above, and the same six for the product pass}. Returns the
+// cudaError of the query.
 int pio_flash_attn_huge_bwd_plan(int B, int L, int H, int D, int dtype,
                                  int causal, int kind, long long* out) {
-  Plan p;
-  if (!bwd_plan(B, L, H, D, dtype, kind, &p))
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = bwd_init();
-  if (err != cudaSuccess) return (int)err;
-  const Band band = band_of(p, kind, 0);
-  const int threads[2] = {kScoreThreads, kind == kDkv ? 2 * kGroup : kGroup};
-  const long long grids[2][3] = {
-      {score_ctas(band, kind, causal != 0), band.nbh, 1},
-      {D / kOut, band.nbh, band.tiles}};
-  const long long head[4] = {p.tiles, p.heads, p.bands, p.ws_bytes};
-  for (int i = 0; i < 4; ++i) out[i] = head[i];
-  for (int pass = 0; pass < 2; ++pass) {
-    int blocks = 0;
-    const int smem = bwd_smem(dtype, kind, pass);
-    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, bwd_kernel(dtype, kind, causal != 0, pass), threads[pass],
-        smem);
-    if (e != cudaSuccess && err == cudaSuccess) err = e;
-    long long* o = out + 4 + 6 * pass;
-    o[0] = grids[pass][0];
-    o[1] = grids[pass][1];
-    o[2] = grids[pass][2];
-    o[3] = threads[pass];
-    o[4] = smem;
-    o[5] = blocks;
-  }
-  return (int)err;
+  if (kind != kDq && kind != kDkv) return (int)cudaErrorInvalidValue;
+  const int order[2] = {0, 1};
+  return report_plan(B, L, H, D, dtype, kind, causal != 0, order, 2, out);
 }
 
 }  // extern "C"

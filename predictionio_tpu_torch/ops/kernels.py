@@ -41,15 +41,17 @@
   launch). No atomics in either.
 - ``csrc/flash_attn_huge.cu`` replaces no TPU kernel either: the same
   three entry points launch it for head dims above 1,024 (multiples of
-  128, with no ceiling; the dispatch pads to one). The forward: a CTA owns
-  four query rows, split across its threads by feature, each score a
-  block reduction, the f32 accumulators in a workspace the wrapper
-  allocates. The backward: a score pass (one CTA per visible 64 x 64 tile
-  pair: S and dP over all of D, then P and dS into a workspace in the
-  input type) and a product pass (one CTA per 64-row own tile and
-  128-feature slice, the other side's tiles summed in registers), band by
-  band so the workspace stays within 256 MiB (``huge_bwd_plan`` is its
-  launch). f32 on CUDA-core FFMAs, bf16 on ``mma.sync``. No atomics.
+  128, with no ceiling; the dispatch pads to one). Each runs as passes
+  over bands of own tiles, so its workspace stays within 256 MiB. The
+  forward: a score pass (one CTA per visible 64 x 64 tile pair: S over
+  all of D into an f32 workspace), a softmax pass (a warp a query row:
+  the row's max, sum and logsumexp, then P in the input type) and a
+  product pass (O = P V, one CTA per 64-row query tile and 128-feature
+  slice); ``huge_fwd_plan`` is its launch. The backward: a score pass (S
+  and dP, then P and dS into the workspace in the input type) and a
+  product pass (the other side's tiles summed in registers);
+  ``huge_bwd_plan`` is its launch. f32 on CUDA-core FFMAs, bf16 on
+  ``mma.sync``. No atomics.
 
 The attention entry points take CUDA tensors only; the CPU dispatch to the
 plain versions (``blockwise_attention``, ``blockwise_attention_bwd``) lives
@@ -78,7 +80,8 @@ import torch
 
 __all__ = ["LAUNCHES", "build", "flash_attention_bwd_dkv",
            "flash_attention_bwd_dq", "flash_attention_fwd", "huge_bwd_plan",
-           "huge_bwd_plan_on_card", "source_digest", "topk", "topk_rows",
+           "huge_bwd_plan_on_card", "huge_fwd_plan", "huge_fwd_plan_on_card",
+           "source_digest", "topk", "topk_rows",
            "wide_bwd_plan", "wide_bwd_plan_on_card", "wide_fwd_plan",
            "wide_fwd_plan_on_card"]
 
@@ -162,6 +165,8 @@ def build() -> ctypes.CDLL:
         lib.pio_flash_attn_wide_bwd_plan.restype = i
         lib.pio_flash_attn_huge_workspace.argtypes = [i] * 6
         lib.pio_flash_attn_huge_workspace.restype = ll
+        lib.pio_flash_attn_huge_fwd_plan.argtypes = [i] * 6 + [p]
+        lib.pio_flash_attn_huge_fwd_plan.restype = i
         lib.pio_flash_attn_huge_bwd_plan.argtypes = [i] * 7 + [p]
         lib.pio_flash_attn_huge_bwd_plan.restype = i
         lib.pio_flash_attn_huge_fwd.argtypes = [p] * 6 + [i] * 6 + [f, p]
@@ -434,24 +439,116 @@ def wide_bwd_plan_on_card(B: int, L: int, H: int, D: int,
     return dict(zip(_WIDE_PLAN_FIELDS, out))
 
 
-#: the huge backward (csrc/flash_attn_huge.cu): rows of a score tile on
-#: each side, features of a product CTA's slice, and the workspace's cap
+#: the huge kernels (csrc/flash_attn_huge.cu): rows of a score tile on
+#: each side, features of a product CTA's slice, the workspace's cap, and
+#: the query rows of a softmax CTA (a warp each)
 _HUGE_TILE, _HUGE_SLICE, HUGE_WS_CAP = 64, 128, 256 << 20
+_HUGE_SOFTMAX_ROWS = 8
+_HUGE_LAUNCH = ("grid_x", "grid_y", "grid_z", "threads", "smem_bytes",
+                "blocks_per_sm")
 #: pio_flash_attn_huge_bwd_plan's fields, in order: the band, then each
 #: pass's launch for the first band
 _HUGE_PLAN_FIELDS = ("band_tiles", "band_heads", "bands", "workspace_bytes",
                      *(f"{pass_}_{key}" for pass_ in ("score", "product")
-                       for key in ("grid_x", "grid_y", "grid_z", "threads",
-                                   "smem_bytes", "blocks_per_sm")))
+                       for key in _HUGE_LAUNCH))
+#: pio_flash_attn_huge_fwd_plan's fields, likewise for its three passes
+_HUGE_FWD_PLAN_FIELDS = (*_HUGE_PLAN_FIELDS[:4],
+                         *(f"{pass_}_{key}"
+                           for pass_ in ("score", "softmax", "product")
+                           for key in _HUGE_LAUNCH))
 
 
 def _huge_seen(kind: int, causal: bool, t: int, nt: int) -> range:
     """The other side's tiles own tile ``t`` sees: dK/dV (kind 2) owns key
     tiles and, under a causal mask, sees the query tiles from its own on;
-    dQ (kind 1) owns query tiles and sees the key tiles up to its own."""
+    dQ (kind 1) and the forward (kind 0) own query tiles and see the key
+    tiles up to their own."""
     if not causal:
         return range(nt)
     return range(t, nt) if kind == 2 else range(t + 1)
+
+
+def _huge_plan(B: int, L: int, H: int, D: int, dtype: torch.dtype,
+               kind: int, causal: bool) -> dict:
+    """The bands and launches of a huge ``kind`` (0 forward, 1 dQ, 2
+    dK/dV), as ``huge_fwd_plan`` and ``huge_bwd_plan`` describe them."""
+    what = "backward" if kind else "forward"
+    T, nt, bh, cap = _HUGE_TILE, -(-L // _HUGE_TILE), B * H, HUGE_WS_CAP
+    if (dtype not in _ATTN_DTYPES or D <= WIDE_MAX_HEAD_DIM
+            or D % _HUGE_SLICE
+            or not (0 < B <= 65535 and 0 < H <= 65535 and L > 0)):
+        raise ValueError(f"huge {what}: {dtype}, B {B}, L {L}, H {H}, D {D};"
+                         f" it takes f32 or bf16 and D a multiple of 128 "
+                         f"above 1,024")
+    esize = 4 if dtype == torch.float32 else 2
+    planes = 2 if kind == 2 else 1
+    # one visible pair: the forward's f32 S (and its bf16 P), the
+    # backward's P and dS or dS alone in the input type
+    pair = T * T * (4 + (esize == 2) * 2 if kind == 0 else planes * esize)
+    col = nt * pair  # one own tile of one (batch, head)
+    if col > cap:
+        raise ValueError(f"huge {what}: L {L} needs {col} bytes of "
+                         f"workspace for one own tile, above the cap of "
+                         f"{cap} bytes")
+    per = cap // col
+    heads, tiles = (bh, min(nt, per // bh)) if per >= bh else (per, 1)
+    bands = []
+    for h0 in range(0, bh, heads):
+        nh = min(heads, bh - h0)
+        for t0 in range(0, nt, tiles):
+            if kind == 2:
+                own = range(t0, min(nt, t0 + tiles))
+            else:
+                own = range(nt - 1 - t0, max(0, nt - t0 - tiles) - 1, -1)
+            band = {"heads": range(h0, h0 + nh), "tiles": own,
+                    "score_grid": (sum(len(_huge_seen(kind, causal, t, nt))
+                                       for t in own), nh, 1),
+                    "product_grid": (D // _HUGE_SLICE, nh, len(own))}
+            if kind == 0:
+                band["softmax_grid"] = (
+                    _HUGE_TILE // _HUGE_SOFTMAX_ROWS * len(own), nh, 1)
+            bands.append(band)
+    tiles_a_stage = 2 if kind == 0 else 4
+    ring = 2 * tiles_a_stage * T * (128 + 16)  # 128 bytes of features a row
+    stage = T * ((T + 16 // esize) + (_HUGE_SLICE + 16 // esize)) * esize
+    plan = {"band_tiles": tiles, "band_heads": heads, "bands": bands,
+            "workspace_bytes": heads * tiles * col,
+            "score": {"grid": bands[0]["score_grid"],
+                      "threads": 128 if kind == 0 else 256,
+                      "smem_bytes": ring},
+            "product": {"grid": bands[0]["product_grid"],
+                        "threads": 128 * planes,
+                        "smem_bytes": 2 * planes * stage}}
+    if kind == 0:
+        plan["softmax"] = {"grid": bands[0]["softmax_grid"],
+                           "threads": 32 * _HUGE_SOFTMAX_ROWS,
+                           "smem_bytes": 0}
+    return plan
+
+
+def huge_fwd_plan(B: int, L: int, H: int, D: int, dtype: torch.dtype,
+                  causal: bool = True) -> dict:
+    """The huge forward's launch, as ``csrc/flash_attn_huge.cu`` plans it
+    (``pio_flash_attn_huge_fwd_plan`` reports the same on the card). Three
+    passes a band: ``score`` (a CTA of 128 threads per visible 64 x 64
+    tile pair of a (batch, head): S over D through a two-stage ring of the
+    Q and K row tiles, 32 f32 or 64 bf16 features, written raw in f32),
+    ``softmax`` (a CTA per 8 query rows, a warp a row: the row's max, sum
+    and logsumexp, then P in the input type, over S for f32 and into a bf16
+    plane after S for bf16) and ``product`` (dQ's: ``D / 128`` slices, the
+    (batch, head)s, the own query tiles; O = P V). The workspace holds one
+    band's S (and bf16 P) tiles, each own query tile's ``nt`` key tiles,
+    ``nt * 64 * 64 * (4 + 2 for bf16)`` bytes an own tile of a (batch,
+    head), at most ``HUGE_WS_CAP`` bytes. Bands over own query tiles, the
+    last (heaviest under a causal mask) first, as dQ's: ``bands``,
+    ``band_tiles``, ``band_heads`` and ``workspace_bytes`` as
+    ``huge_bwd_plan`` gives them, each band with its ``softmax_grid`` too;
+    ``score``, ``softmax`` and ``product`` give each pass's threads and
+    dynamic shared memory a CTA, with the first band's grid. Raises
+    ``ValueError`` on a shape the kernels do not take, among them one own
+    tile of one (batch, head) above the cap (L above 1,048,576 for f32,
+    699,008 for bf16)."""
+    return _huge_plan(B, L, H, D, dtype, 0, causal)
 
 
 def huge_bwd_plan(B: int, L: int, H: int, D: int, dtype: torch.dtype,
@@ -476,44 +573,24 @@ def huge_bwd_plan(B: int, L: int, H: int, D: int, dtype: torch.dtype,
     128-feature slice), with the first band's grid. Raises ``ValueError``
     on a shape or kind the kernels do not take (among them one own tile of
     one (batch, head) above the cap: L above 524,288 for f32 dK/dV)."""
-    T, nt, bh, cap = _HUGE_TILE, -(-L // _HUGE_TILE), B * H, HUGE_WS_CAP
-    if (kind not in _WIDE_BWD_KINDS or dtype not in _ATTN_DTYPES
-            or D <= WIDE_MAX_HEAD_DIM or D % _HUGE_SLICE
-            or not (0 < B <= 65535 and 0 < H <= 65535 and L > 0)):
-        raise ValueError(f"huge backward: kind {kind}, {dtype}, B {B}, L {L}"
-                         f", H {H}, D {D}; it takes kind 1 (dQ) or 2 "
-                         f"(dK/dV), f32 or bf16, and D a multiple of 128 "
-                         f"above 1,024")
-    esize = 4 if dtype == torch.float32 else 2
-    planes = 2 if kind == 2 else 1
-    col = nt * planes * T * T * esize  # one own tile of one (batch, head)
-    if col > cap:
-        raise ValueError(f"huge backward: L {L} needs {col} bytes of "
-                         f"workspace for one own tile, above {cap}")
-    per = cap // col
-    heads, tiles = (bh, min(nt, per // bh)) if per >= bh else (per, 1)
-    bands = []
-    for h0 in range(0, bh, heads):
-        nh = min(heads, bh - h0)
-        for t0 in range(0, nt, tiles):
-            if kind == 2:
-                own = range(t0, min(nt, t0 + tiles))
-            else:
-                own = range(nt - 1 - t0, max(0, nt - t0 - tiles) - 1, -1)
-            bands.append({
-                "heads": range(h0, h0 + nh), "tiles": own,
-                "score_grid": (sum(len(_huge_seen(kind, causal, t, nt))
-                                   for t in own), nh, 1),
-                "product_grid": (D // _HUGE_SLICE, nh, len(own))})
-    ring = 2 * 4 * T * (128 + 16)  # 128 bytes of features a row, padded
-    stage = T * ((T + 16 // esize) + (_HUGE_SLICE + 16 // esize)) * esize
-    return {"band_tiles": tiles, "band_heads": heads, "bands": bands,
-            "workspace_bytes": heads * tiles * col,
-            "score": {"grid": bands[0]["score_grid"], "threads": 256,
-                      "smem_bytes": ring},
-            "product": {"grid": bands[0]["product_grid"],
-                        "threads": 128 * planes,
-                        "smem_bytes": 2 * planes * stage}}
+    if kind not in _WIDE_BWD_KINDS:
+        raise ValueError(f"huge backward: kind {kind}; it takes kind 1 (dQ)"
+                         f" or 2 (dK/dV)")
+    return _huge_plan(B, L, H, D, dtype, kind, causal)
+
+
+def huge_fwd_plan_on_card(B: int, L: int, H: int, D: int,
+                          dtype: torch.dtype, causal: bool) -> dict:
+    """``pio_flash_attn_huge_fwd_plan``: the forward launch the card would
+    make, by ``_HUGE_FWD_PLAN_FIELDS``, with the CTAs an SM holds at once
+    of each pass (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    lib = build()
+    out = (ctypes.c_longlong * len(_HUGE_FWD_PLAN_FIELDS))()
+    err = lib.pio_flash_attn_huge_fwd_plan(B, L, H, D, _ATTN_DTYPES[dtype],
+                                           int(causal), out)
+    if err:
+        raise RuntimeError(f"pio_flash_attn_huge_fwd_plan: cudaError {err}")
+    return dict(zip(_HUGE_FWD_PLAN_FIELDS, out))
 
 
 def huge_bwd_plan_on_card(B: int, L: int, H: int, D: int,
@@ -586,8 +663,8 @@ def _attn_launch(name: str, kind: int, ptrs: list, shape: tuple,
                  device: torch.device) -> None:
     """Launch the entry point ``name``'s kernel (``kind``: 0 forward, 1 dQ,
     2 dK/dV) for ``shape`` on the current stream, with the workspace the
-    huge kernels take (the backward's as ``huge_bwd_plan`` sizes it, held
-    equal to the card's), and count it."""
+    huge kernels take (as ``huge_fwd_plan`` or ``huge_bwd_plan`` sizes it,
+    held equal to the card's), and count it."""
     B, L, H, D = shape
     route, code = _route(D), _ATTN_DTYPES[dtype]
     plan = None  # each plan raises on a shape it refuses
@@ -596,15 +673,16 @@ def _attn_launch(name: str, kind: int, ptrs: list, shape: tuple,
             wide_fwd_plan(B, L, H, D, dtype)
         else:
             wide_bwd_plan(B, L, H, D, dtype, kind)
-    elif route == "huge" and kind:
-        plan = huge_bwd_plan(B, L, H, D, dtype, kind, causal)
+    elif route == "huge":
+        plan = (huge_bwd_plan(B, L, H, D, dtype, kind, causal) if kind
+                else huge_fwd_plan(B, L, H, D, dtype, causal))
     lib = build()
     fn = getattr(lib, _ATTN_FNS[route][(0, 2, 1)[kind]])
     extra = []
-    if route == "huge":
+    if plan is not None:
         card = lib.pio_flash_attn_huge_workspace(B, L, H, D, kind, code)
-        nbytes = card if plan is None else plan["workspace_bytes"]
-        if card < 0 or card != nbytes:
+        nbytes = plan["workspace_bytes"]
+        if card != nbytes:
             raise ValueError(f"{name}: the huge kernels refuse shape {shape} "
                              f"or size its workspace otherwise ({card} "
                              f"bytes, the plan {nbytes})")

@@ -69,6 +69,8 @@ SHAPES = {"train": (8, 4096, 8, 64, "float32"),
           "huge_f32": (1, 1024, 2, 4096, "float32"),
           "huge_bf16": (1, 1024, 2, 4096, "bfloat16")}
 FLAGS = ["-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a"]
+#: the kernel sources and the header they share
+CSRC = kernels.SOURCES[0].parent
 
 
 def emit(obj: dict) -> None:
@@ -81,7 +83,7 @@ def build_renamed(path: Path, name: str, prefix: str, new_prefix: str,
     directory, its entry points' ``prefix`` renamed ``new_prefix``; give
     each entry in ``argtypes`` (suffix -> ctypes types) an int result and
     call the entry point ``new_prefix + init`` (where the source has
-    one)."""
+    one). Its ``#include "attn_tiles.cuh"`` finds the current header."""
     from torch.utils.cpp_extension import load
 
     out = kernels.BUILD_DIR / name
@@ -90,6 +92,7 @@ def build_renamed(path: Path, name: str, prefix: str, new_prefix: str,
     src.write_text(path.read_text().replace(prefix, new_prefix))
     lib = ctypes.CDLL(load(name=name, sources=[str(src)],
                            build_directory=str(out), extra_cuda_cflags=FLAGS,
+                           extra_include_paths=[str(CSRC)],
                            is_python_module=False, verbose=False))
     for suffix, types in (({init: []} if init else {}) | argtypes).items():
         getattr(lib, new_prefix + suffix).argtypes = types
@@ -240,10 +243,13 @@ KERNEL = re.compile(r"(bwd_(?:dkv|dq)_(?:f32|bf16)|flash_bwd_(?:dkv|dq))"
 #: the wide backward's wide_dkv_*<causal> and wide_dq_*<causal> (a
 #: 128-feature slice and 64 own rows a CTA)
 WIDE_KERNEL = re.compile(r"wide_(dkv|dq)_(f32|bf16)ILb([01])E")
-#: the huge backward's huge_score<T, kind, causal> and huge_product<T,
-#: kind, causal> (kind 1 dQ, 2 dK/dV)
+#: the huge kernels' huge_score<T, kind, causal> and huge_product<T, kind,
+#: causal> (kind 0 the forward, 1 dQ, 2 dK/dV)
 HUGE_KERNEL = re.compile(r"huge_(score|product)I(f|13__nv_bfloat16)"
-                         r"Li([12])ELb([01])E")
+                         r"Li([012])ELb([01])E")
+#: the huge forward's own kernels (attn_fwd_ab.py reports them): its score
+#: pass and its softmax pass
+HUGE_FWD_KERNEL = re.compile(r"huge_(scoreI(f|13__nv_bfloat16)Li0E|softmax)")
 
 
 def dyn_smem(kind: str, dp: int) -> int | None:
@@ -273,8 +279,9 @@ def kernel_resources(src: Path, cubin_name: str) -> dict:
     out.mkdir(parents=True, exist_ok=True)
     cubin = out / f"{cubin_name}.cubin"
     run = subprocess.run([nvcc, "-cubin", "-O3", "-std=c++17",
-                          "-arch=sm_90a", "-Xptxas", "-v", "-o", str(cubin),
-                          str(src)], capture_output=True, text=True)
+                          "-arch=sm_90a", "-Xptxas", "-v", "-I", str(CSRC),
+                          "-o", str(cubin), str(src)], capture_output=True,
+                         text=True)
     if run.returncode:
         raise RuntimeError(f"nvcc -cubin {src} failed:\n{run.stderr[-4000:]}")
     ptxas = run.stderr
@@ -312,6 +319,8 @@ def kernel_resources(src: Path, cubin_name: str) -> dict:
 
 def resources(src: Path, tag: str) -> None:
     for fn, rec in sorted(kernel_resources(src, tag).items()):
+        if HUGE_FWD_KERNEL.search(fn):
+            continue
         hg = HUGE_KERNEL.search(fn)
         if hg:
             dtype = torch.float32 if hg.group(2) == "f" else torch.bfloat16
